@@ -25,7 +25,7 @@ def main():
     ap.add_argument("--quantizer_str", default=None)
     ap.add_argument("--ctx_size", type=int, default=8192)
     ap.add_argument("--save_dir", default="quant_results")
-    ap.add_argument("--impl", default="xla", choices=["xla", "pallas", "pallas_a8"])
+    ap.add_argument("--impl", default="xla", choices=["xla", "pallas"])
     ap.add_argument("--num_layers", type=int, default=-1)
     ap.add_argument("--re_eval", action="store_true")
     ap.add_argument("--hess_path", default=None,

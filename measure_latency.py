@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--dummy", action="store_true")
     ap.add_argument("--impl", default="pallas",
-                    choices=["pallas", "pallas_a8", "xla"])
+                    choices=["pallas", "xla"])
     ap.add_argument("--num_hidden_layers", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save_key", default="")

@@ -1,4 +1,4 @@
-// Exact 1-D k-means via dynamic programming (the TPU-framework
+// Exact 1-D k-means via dynamic programming (this framework's
 // equivalent of the reference's flash1dkmeans exact scalar clustering,
 // lib/quantizer/vq_quant.py:12-33).
 //

@@ -3,7 +3,7 @@
 // Reference behavior: lib/quantizer/pack_op.py — numba-jit sequential bit
 // packers (general_pack*, pack_codes, pack_for_sq_pack_kernel) used during
 // quantization and format conversion.  Here the same role is filled by a
-// small threaded C++ library operating on the TPU formats of
+// small threaded C++ library operating on the canonical formats of
 // qpalette_tpu/ops/packing.py (little-endian bitstreams):
 //
 //   rowpack:    index i of a row lives at stream bits [i*bits, (i+1)*bits)

@@ -1,19 +1,19 @@
-"""Q-Palette-TPU: a TPU-native fractional-bit weight-only quantization + inference framework.
+"""Fractional-bit weight-only quantization + inference framework in JAX.
 
 Re-implements the full capability surface of snu-mllab/Q-Palette (NeurIPS 2025,
 arXiv:2509.20214) — scalar (SQ), vector (VQ) and trellis-coded (TCQ) quantizers
 spanning 1.5–12 bits/weight, incoherence processing, LDLQ Hessian-aware
-quantization, fused LUT-dequant matmul kernels, and the fusion-aware
-mixed-scheme (MSQ) solvers — as an idiomatic JAX/XLA/Pallas stack for TPUs.
+quantization, a decode-GEMV kernel, and the fusion-aware mixed-scheme (MSQ)
+solvers — on JAX / XLA / Pallas, running on an NVIDIA H100.
 
 Layer map (bottom → top), mirroring reference SURVEY.md §1:
-  L0  qpalette_tpu.kernels   — Pallas TPU kernels (fused decode+matmul, Hadamard)
+  L0  qpalette_tpu.kernels   — device layouts + the trellis decode-GEMV (Pallas/Triton)
   L1  qpalette_tpu.ops       — packed formats, reference codecs, Hadamard transform
   L2  qpalette_tpu.quant     — LDLQ / Viterbi / VQ-ALS quantization algorithms
   L3  qpalette_tpu.models    — Llama model family with quantized linears
   L4  qpalette_tpu.runtime   — decode engine, KV cache, eval harness
   L5  qpalette_tpu.msq       — mixed-scheme quantization solvers (mem / latency)
-  L6  qpalette_tpu.parallel  — mesh/sharding (tensor parallel over ICI)
+  L6  qpalette_tpu.parallel  — mesh/sharding (tensor parallel over NVLink)
 """
 
 __version__ = "0.1.0"

@@ -1,259 +1,49 @@
-"""Kernel-side packed layouts + activation pre-permutations.
+"""On-device packed layouts, one per kind.
 
-The canonical formats (ops/packing.py) are row-major bitstreams.  The Pallas
-decode kernels want:
+The canonical formats (ops/packing.py) are row-major bitstreams: trellis
+tiles in tile-row-major order, VQ indices as one bitstream per output row.
+At load time each kind is placed in the single layout that every consumer
+reads — the decode-GEMV kernel, the plain XLA path, the dummy-weight
+builder, the memory model and tensor-parallel sharding:
 
-VQ/SQ ("vqT"): words transposed to (P*bits/32, m) so weight ROWS live in
-  lanes and words in sublanes.  Decode then processes one output vreg
-  (8 strided positions × 128 rows) with a scalar shift per vreg — see
-  kernels/fused.py.  Because positions are blocked 512 at a time and
-  512*bits ≡ 0 (mod 32), rowpack words transpose 1:1 (no re-packing).
+trellis kinds (tcq, tcq1, tcq2 and the halves of tcomb/comb):
+  ``trellis_kt`` (k/16, words_per_tile, m/16) uint32 — the canonical
+  (m/16 * k/16, words) array with its two tile axes split and the m-tile
+  axis moved last.  Consecutive m-tiles sit side by side, so a GPU program
+  that owns a block of m-tiles reads each packed word row with one
+  coalesced load, and a column-parallel shard is a contiguous m-tile range.
+  Every tile's bitstream is self-contained (tail-biting), so row-parallel
+  shards split cleanly on k-tiles.  Storage is exactly the nominal bits.
 
-  Position order inside a 512-block is v-major/stride-64 interleaved
-  ((v, c, s) for original position p = v + 64*s, component c), so the
-  activation vector is pre-permuted once per matmul by pure
-  reshape/transpose (vq_x_perm) — the TPU equivalent of the reference's
-  activation-side mma swizzle.
+VQ/SQ:
+  ``qweight_t`` (P*bits/32, m) uint32 — the rowpack words without the pad
+  word, transposed so output rows are the minor axis.  Requires
+  P*bits % 32 == 0 (true for every model width); row-parallel shards split
+  the word axis when (k/tp/vec*bits) % 32 == 0.
 
-TCQ ("tcqKT"): trellis words rearranged to (k/16, 4*KV, m/16) so tile-ROWS
-  live in lanes; each vreg decodes 8 consecutive positions of one tile
-  column across 128 tile-rows.  No activation permutation is needed (the
-  within-tile order works out to identity).
-
-These converters run once at model load (numpy/XLA, off the hot path).
+These converters run once at model load.
 """
 
 from __future__ import annotations
 
-import numpy as np
-import jax
 import jax.numpy as jnp
 
-LANES = 128
+
+def trellis_words_per_tile(KV: int, V: int) -> int:
+    """uint32 words per 16x16 tile: 256/V states advancing KV bits each."""
+    return 8 * KV // V
 
 
-def vq_kernel_weights(packed: np.ndarray, bits: int, vec: int, m: int,
-                      k: int) -> np.ndarray:
-    """rowpack (m, W+1) uint32 -> (8, W/8, m) uint32, sublane-grouped.
+def trellis_kt(trellis, m: int, k: int):
+    """canonical (m/16 * k/16, W) tile-row-major -> (k/16, W, m/16)."""
+    T, W = trellis.shape
+    mt, kt = m // 16, k // 16
+    assert T == mt * kt, (T, m, k)
+    return jnp.asarray(trellis).reshape(mt, kt, W).transpose(1, 2, 0)
 
-    Decode maps 8 strided positions to the 8 sublanes of each vreg; the
-    words each sublane group needs are stored contiguously along dim 1 so
-    the kernel indexes [s-block, word, lanes] directly with NO in-kernel
-    sublane reshuffle (a (wpb, m)->(8, g, m) reshape in VMEM is a full
-    relayout and dominated decode time)."""
+
+def vq_words(packed, bits: int, vec: int, k: int):
+    """rowpack (m, P*bits/32 + 1) -> qweight_t (P*bits/32, m)."""
     P = k // vec
-    assert (P * bits) % 32 == 0 and P % 128 == 0, (P, bits)
-    W = P * bits // 32
-    arr = np.asarray(packed)[:, :W].T  # (W, m)
-    kb = _pick_kb_np(P, bits)
-    wpb = kb * bits // 32
-    g = wpb // 8
-    nch = W // wpb
-    # word w of chunk c belongs to sublane-group s = w // g, slot w % g
-    arr = arr.reshape(nch, 8, g, m)
-    out = arr.transpose(1, 0, 2, 3).reshape(8, nch * g, m)
-    return np.ascontiguousarray(out)
-
-
-def _pick_kb_np(P: int, bits: int) -> int:
-    for kb in (512, 256, 128):
-        if P % kb == 0 and (kb // 8) * bits % 32 == 0:
-            return kb
-    raise ValueError((P, bits))
-
-
-def vq_x_perm(x: jax.Array, vec: int, kb: int) -> jax.Array:
-    """Permute activations to the kernel's scratch order.
-
-    Original column (j*kb + v + (kb/8)*s)*vec + c  ->  scratch row
-    j*kb*vec + (v*vec + c)*8 + s.  Pure reshape/transpose (no gather).
-    """
-    N, kdim = x.shape
-    nblk = kdim // (kb * vec)
-    xr = x.reshape(N, nblk, 8, kb // 8, vec)  # (s, v, c) strides of orig col
-    return xr.transpose(0, 1, 3, 4, 2).reshape(N, kdim)
-
-
-def tcq_kernel_weights(trellis: np.ndarray, m: int, k: int) -> np.ndarray:
-    """canonical (T, 4KV) tile-row-major -> (k/16, 4KV, m/16) uint32."""
-    T, W = trellis.shape
-    mt, kt = m // 16, k // 16
-    assert T == mt * kt
-    arr = np.asarray(trellis).reshape(mt, kt, W)
-    return np.ascontiguousarray(arr.transpose(1, 2, 0))
-
-
-def tcq1_n_planes(KV: int) -> int:
-    """32-bit planes per sublane group for the ALIGNED planar layout."""
-    return -(-(15 * KV + 16) // 32)
-
-
-def planar_dense(KV: int) -> bool:
-    """Even KV uses the DENSE planar layout: each sublane's 16-state
-    stream is exactly 16*KV bits = KV/2 whole words, so plane j holds the
-    tile's raw word (KV/2 * t + j) with NO alignment padding; the 16-bit
-    carry tail (states 14/15 read past word KV/2-1) is recovered in-kernel
-    by a single sublane roll of plane 0 (sublane t's rolled value = word
-    KV/2*(t+1), circular within the tile — tail-biting makes the tile's
-    bitstream circular).  Stored bits/weight = KV/2 exactly, vs the
-    aligned layout's 32*ceil((15KV+16)/32)/(8*KV) inflation (1.33x at
-    KV=6).  Odd KV with an even tile count uses the DOUBLE-TILE dense
-    layout (planar_dense_odd); odd KV with odd k/16 keeps the aligned
-    fallback."""
-    return KV % 2 == 0
-
-
-def planar_dense_odd(KV: int, k: int) -> bool:
-    """Odd KV: DENSE double-tile planar layout (zero storage inflation).
-
-    Two consecutive k-tiles (A, B) share one block.  Sublane s = (tile
-    h = s&1, sublane-pair-group r = s>>1); group r covers the tile's two
-    adjacent sublane streams {2r, 2r+1} whose combined span is 32·KV bits
-    = exactly KV whole 32-bit words, so plane j (j < KV) holds tile h's
-    raw word (r·KV + j) and storage is exactly KV/2 bits per weight for
-    V=2 (KV for V=1).  The decode loop runs TWO extractions per m-row
-    (parity p selects stream 2r+p; state bit offset within the group =
-    KV·(16p + i)) — the same 32 extractions per two tiles as the
-    single-tile layouts, so decode ALU cost is unchanged.  The carry word
-    r·KV + KV = word 0 of group r+1 is one sublane roll by -2 of plane 0
-    (parity-preserving; wraps to group 0 of the same tile, matching the
-    tail-biting circular tile stream).  Requires an even tile count
-    (k/16 % 2 == 0) — odd tile counts (tiny test shapes) keep the aligned
-    layout."""
-    return KV % 2 == 1 and (k // 16) % 2 == 0
-
-
-def planar_n_planes(KV: int) -> int:
-    """Planes per sublane group for the single-tile planar layouts
-    (dense-even or aligned).  The dense-odd double-tile layout has KV
-    planes per block instead (see planar_dense_odd).
-
-    The decode kernel appends one extra rolled plane in the dense cases,
-    so in-kernel `planes[j0 + 1]` indexing is uniform across layouts."""
-    return KV // 2 if planar_dense(KV) else tcq1_n_planes(KV)
-
-
-def tcq1_planar_weights(trellis, m: int, k: int, KV: int):
-    """canonical (T, 8KV) tile-row-major -> planar (k/16, NP*16, m/16).
-
-    Planar layout for the gather-free tcq1 kernel: tile order is k-major
-    (state p = 16*t + v2; t = k-col = sublane, v2 = m-row), and row
-    j*16 + t holds the ALIGNED 32-bit window [16*KV*t + 32*j, +32) of the
-    tile's circular bitstream.  In-kernel state derivation is then
-    constant-shift-only (no per-sublane variable shifts / select chains);
-    stream inflation is 32*NP/(8*KV) (1.33x at KV=3).  jnp ops throughout
-    so dummy-mode weights can be generated on device."""
-    T, W = trellis.shape
-    assert W == 8 * KV
-    mt, kt = m // 16, k // 16
-    assert T == mt * kt
-    arr = jnp.asarray(trellis).reshape(mt, kt, W).transpose(1, 2, 0)
-    if planar_dense_odd(KV, k):
-        # double-tile dense layout: block g covers tiles (2g, 2g+1);
-        # plane j sublane s = tile (2g + (s&1))'s raw word ((s>>1)*KV + j)
-        a = arr.reshape(kt // 2, 2, W, mt)
-        rows = []
-        for j in range(KV):
-            for s in range(16):
-                h, r = s & 1, s >> 1
-                rows.append(a[:, h, r * KV + j, :])
-        return jnp.stack(rows, axis=1)  # (kt/2, KV*16, mt)
-    NP = planar_n_planes(KV)
-    rows = []
-    for j in range(NP):
-        for t in range(16):
-            if planar_dense(KV):  # row j*16+t = raw word KV/2*t + j
-                rows.append(arr[:, NP * t + j, :])
-                continue
-            off = (16 * KV * t + 32 * j) % (256 * KV)
-            w0, sh = off >> 5, off & 31
-            lo = arr[:, w0, :]
-            if sh == 0:
-                rows.append(lo)
-            else:
-                hi = arr[:, (w0 + 1) % W, :]
-                rows.append((lo >> jnp.uint32(sh))
-                            | (hi << jnp.uint32(32 - sh)))
-    return jnp.stack(rows, axis=1)  # (kt, NP*16, mt), row j*16+t
-
-
-def tcq2_planar_weights(trellis, m: int, k: int, KV: int):
-    """canonical (T, 4KV) tile-row-major -> planar (k/16, NP*8, m/16).
-
-    V=2 version of tcq1_planar_weights: a tile's 128 states are ordered
-    s = 16*t + row (t = k-col PAIR = sublane, row = m-row), so row j*8 + t
-    holds the ALIGNED 32-bit window [16*KV*t + 32*j, +32) of the tile's
-    circular 128*KV-bit stream and in-kernel state derivation for m-row i
-    is the constant shift KV*i.  8 sublanes per plane (one vreg covers a
-    whole plane at wm=128).  NP = tcq1_n_planes(KV) (same bound: row t's
-    states span [16KV*t, 16KV*t + 15KV + 16))."""
-    T, W = trellis.shape
-    assert W == 4 * KV
-    mt, kt = m // 16, k // 16
-    assert T == mt * kt
-    arr = jnp.asarray(trellis).reshape(mt, kt, W).transpose(1, 2, 0)
-    if planar_dense_odd(KV, k):
-        # double-tile dense layout (see planar_dense_odd): plane j sublane
-        # s = tile (2g + (s&1))'s raw word ((s>>1)*KV + j)
-        a = arr.reshape(kt // 2, 2, W, mt)
-        rows = []
-        for j in range(KV):
-            for s in range(8):
-                h, r = s & 1, s >> 1
-                rows.append(a[:, h, r * KV + j, :])
-        return jnp.stack(rows, axis=1)  # (kt/2, KV*8, mt)
-    NP = planar_n_planes(KV)
-    rows = []
-    for j in range(NP):
-        for t in range(8):
-            if planar_dense(KV):  # row j*8+t = raw word KV/2*t + j
-                rows.append(arr[:, NP * t + j, :])
-                continue
-            off = (16 * KV * t + 32 * j) % (128 * KV)
-            w0, sh = off >> 5, off & 31
-            lo = arr[:, w0, :]
-            if sh == 0:
-                rows.append(lo)
-            else:
-                hi = arr[:, (w0 + 1) % W, :]
-                rows.append((lo >> jnp.uint32(sh))
-                            | (hi << jnp.uint32(32 - sh)))
-    return jnp.stack(rows, axis=1)  # (kt, NP*8, mt), row j*8+t
-
-
-def lut_tables(lut: np.ndarray, bits: int) -> np.ndarray:
-    """(2^bits, vec) codebook -> (vec, nch, 8, 128) f32 lane-gather tables
-    (each 128-entry chunk replicated across the 8 sublanes)."""
-    lut = np.asarray(lut, np.float32)
-    if lut.ndim == 1:
-        lut = lut[:, None]
-    n, vec = lut.shape
-    assert n == 1 << bits
-    nch = max(1, n // LANES)
-    if n < LANES:  # pad small codebooks up to one chunk
-        lut = np.pad(lut, ((0, LANES - n), (0, 0)))
-    chunks = lut.T.reshape(vec, nch, LANES)
-    return np.ascontiguousarray(
-        np.broadcast_to(chunks[:, :, None, :], (vec, nch, 8, LANES)))
-
-
-def trellis_sign_tables(tlut: np.ndarray, tlut_bits: int) -> np.ndarray:
-    """tlut (2^S, 2) -> (2, nch, 8, 128) gather tables for the quantlut_sym
-    decode (sign applied separately in-kernel)."""
-    return lut_tables(tlut, tlut_bits)
-
-
-def tcomb_kernel_weights(tr1: np.ndarray, tr2: np.ndarray, m: int,
-                         n1: int, n2: int, KV1: int, KV2: int) -> np.ndarray:
-    """Both tcomb halves in one kernel array (k/16, 4*KV2, m/16).
-
-    The KV1 half's tiles are zero-padded from 4*KV1 to 4*KV2 words — a
-    runtime-only layout trade (~(KV2-KV1)/(KV1+KV2) extra HBM bytes) that
-    halves the kernel-call count; the canonical storage format (and the
-    MSQ memory accounting) keeps the true fractional-bit size."""
-    a = tcq_kernel_weights(tr1, m, n1)  # (n1/16, 4KV1, m/16)
-    b = tcq_kernel_weights(tr2, m, n2)  # (n2/16, 4KV2, m/16)
-    assert KV2 >= KV1
-    pad = np.zeros((a.shape[0], 4 * (KV2 - KV1), a.shape[2]), a.dtype)
-    a = np.concatenate([a, pad], axis=1)
-    return np.ascontiguousarray(np.concatenate([a, b], axis=0))
+    assert (P * bits) % 32 == 0, (P, bits)
+    return jnp.asarray(packed)[:, :P * bits // 32].T

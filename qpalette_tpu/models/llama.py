@@ -1,11 +1,11 @@
-"""Llama model family with incoherent quantized linears, TPU-native.
+"""Llama model family with incoherent quantized linears.
 
 Reference behavior: model/incoherent_llama.py + lib/linear/incoherent_linear.py
 (IncoherentSdpaAttention :28-274, IncoherentMLP :279-394) — HF-module forks
 where every projection is an incoherence-wrapped quantized linear, with
 optional QKV/gate-up merging chosen by the MSQ solver.
 
-TPU-native design: pure-functional forward over a params pytree; all
+Design: pure-functional forward over a params pytree; all
 configuration (scheme kinds, shapes, merge layout) lives in hashable static
 specs so a single jit trace covers the whole model; decode uses a
 statically-shaped KV cache (the reference's StaticCache + torch.compile,
@@ -114,8 +114,8 @@ class ModelSpec:
     # forward: name of the mesh axis to psum row-parallel (o/down) outputs
     tp_axis: Optional[str] = None
     # non-None: the lm_head is a quantized linear (e.g. 4-bit tcq2s) —
-    # params carry "lm_head_q4" + "lm_head_su"; forward routes through
-    # qlinear_apply with the rotation fused into the decode kernel
+    # params carry "lm_head_q4" + "lm_head_su"; forward rotates the final
+    # hidden state and routes it through qlinear_apply
     lm_head_spec: Optional[object] = None
 
 
@@ -273,26 +273,14 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: jax.Array,
     the mesh axis for the o_proj partial-sum reduction."""
     B, S, N = x.shape
     rotated = spec.projs[0][1].kind != "dense"
-    non_o = [(nm, ls) for nm, ls in spec.projs if nm != "o"]
-    # single-projection groups (merged qkv) hand the UN-rotated activation
-    # to qlinear_apply, which fuses the incoherence rotation into the
-    # decode kernel's activation prologue when the kernel supports it
-    # (runtime/qlinear.can_fuse_rot) and applies it explicitly otherwise;
-    # multi-projection groups share one rotated z (computing it per
-    # projection would duplicate the transform)
-    fuse_qkv = rotated and len(non_o) == 1
-    if rotated and not fuse_qkv:
-        z = _rotate_in(x.reshape(-1, N), p["su_qkv"]).reshape(B, S, N)
-    else:
-        z = x
+    z = x.reshape(-1, N)
+    if rotated:  # one rotation shared by the q/k/v projections
+        z = _rotate_in(z, p["su_qkv"])
     outs = {}
-    for name, lspec in non_o:
-        if fuse_qkv:
-            y = qlinear_apply(lspec, p[name], x.reshape(-1, N), luts,
-                              pre_rot=(p["su_qkv"], 1))
-        else:
-            y = qlinear_apply(lspec, p[name], z.reshape(-1, N), luts)
-        outs[name] = y.reshape(B, S, -1)
+    for name, lspec in spec.projs:
+        if name != "o":
+            outs[name] = qlinear_apply(lspec, p[name], z,
+                                       luts).reshape(B, S, -1)
     # q width = heads*head_dim (== hidden when unsharded; the local value
     # under tensor parallelism), kv width analogous
     hs = cfg.num_heads * cfg.head_dim
@@ -365,11 +353,9 @@ def attn_forward(spec: AttnSpec, cfg: LlamaConfig, p: dict, x: jax.Array,
     z_o = att.reshape(-1, qw)
     if spec.in_perm_o:
         z_o = _block_perm_in(z_o, spec.in_perm_o)
-    if rotated:  # single projection: rotation fused (or applied inside)
-        out = qlinear_apply(ospec, p["o"], z_o, luts,
-                            pre_rot=(p["su_o"], spec.rot_blocks_o))
-    else:
-        out = qlinear_apply(ospec, p["o"], z_o, luts)
+    if rotated:
+        z_o = _rotate_in(z_o, p["su_o"], spec.rot_blocks_o)
+    out = qlinear_apply(ospec, p["o"], z_o, luts)
     out = out.reshape(B, S, N)
     if tp_axis is not None:  # row-parallel o_proj partial sums
         out = jax.lax.psum(out, tp_axis)
@@ -381,17 +367,13 @@ def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: jax.Array,
     B, S, N = x.shape
     I = cfg.intermediate_size  # local value under tensor parallelism
     rotated = spec.projs[0][1].kind != "dense"
-    if spec.merge_ug:  # single projection: fuse rotation into the kernel
-        (ug_name, ug_spec), (_, d_spec) = spec.projs
-        if rotated:
-            y = qlinear_apply(ug_spec, p["ug"], x.reshape(-1, N), luts,
-                              pre_rot=(p["su_ug"], 1))
-        else:
-            y = qlinear_apply(ug_spec, p["ug"], x.reshape(-1, N), luts)
+    z = (_rotate_in(x.reshape(-1, N), p["su_ug"]) if rotated
+         else x.reshape(-1, N))
+    if spec.merge_ug:
+        (_, ug_spec), (_, d_spec) = spec.projs
+        y = qlinear_apply(ug_spec, p["ug"], z, luts)
         up, gate = y[:, :I], y[:, I:]
     else:
-        z = (_rotate_in(x.reshape(-1, N), p["su_ug"]) if rotated
-             else x.reshape(-1, N))
         (_, u_spec), (_, g_spec), (_, d_spec) = spec.projs
         up = qlinear_apply(u_spec, p["up"], z, luts)
         gate = qlinear_apply(g_spec, p["gate"], z, luts)
@@ -400,10 +382,8 @@ def mlp_forward(spec: MLPSpec, cfg: LlamaConfig, p: dict, x: jax.Array,
     if spec.in_perm_down:
         h = _block_perm_in(h, spec.in_perm_down)
     if rotated:
-        out = qlinear_apply(d_spec, p["down"], h, luts,
-                            pre_rot=(p["su_dp"], spec.rot_blocks_down))
-    else:
-        out = qlinear_apply(d_spec, p["down"], h, luts)
+        h = _rotate_in(h, p["su_dp"], spec.rot_blocks_down)
+    out = qlinear_apply(d_spec, p["down"], h, luts)
     if tp_axis is not None:  # row-parallel down_proj partial sums
         out = jax.lax.psum(out, tp_axis)
     return out.reshape(B, S, N)
@@ -465,38 +445,27 @@ def forward(spec: ModelSpec, params: Params, tokens: jax.Array,
         return (x, new_caches) if kv_caches is not None else x
     if spec.lm_head_spec is not None:
         # quantized-trellis lm_head (4-bit tcq2s): same qlinear path as
-        # the decoder projections, incoherence rotation fused into the
-        # decode kernel's activation prologue; vocab padded to 2^17 for
-        # wide m-blocks, sliced back here
-        xf = x.reshape(-1, cfg.hidden_size)
+        # the decoder projections; vocab padded to 2^17, sliced back here.
         # out_dtype=f32: final logits skip the decoder layers' bf16
-        # round-trip, matching the int8 head's f32 epilogue (round-4
-        # VERDICT weak #6)
+        # round-trip, matching the int8 head's f32 epilogue
+        xf = _rotate_in(x.reshape(-1, cfg.hidden_size),
+                        params["lm_head_su"].astype(x.dtype))
         logits = qlinear_apply(spec.lm_head_spec, params["lm_head_q4"], xf,
-                               luts, pre_rot=(params["lm_head_su"], 1),
-                               out_dtype=jnp.float32)
+                               luts, out_dtype=jnp.float32)
         logits = logits[:, :cfg.vocab_size]
         logits = logits.reshape(B, S, cfg.vocab_size)
     elif "lm_head_q" in params:
-        # int8 per-row-quantized lm_head (TPU traffic optimization; the
-        # reference keeps lm_head fp16).  When packed with an incoherence
-        # rotation (loader stores lm_head_su) the activation is rotated to
-        # match and the decode GEMV runs the int8 x int8 MXU path.
+        # int8 per-row-quantized lm_head, stored (k, vocab padded to a
+        # 2048 multiple) with an incoherence rotation (loader stores
+        # lm_head_su).  int8 -> activation dtype is exact; the per-column
+        # scales apply in the f32 epilogue.
         xf = x.reshape(-1, cfg.hidden_size)
         if "lm_head_su" in params:
             xf = _rotate_in(xf, params["lm_head_su"].astype(xf.dtype))
-        mq = params["lm_head_q"].shape[1]  # vocab padded to a 2048 multiple
-        if xf.shape[0] <= 8:
-            from qpalette_tpu.kernels.fused import int8_gemv, int8_gemv_a8
-            gemv = int8_gemv_a8 if "lm_head_su" in params else int8_gemv
-            logits = gemv(xf, params["lm_head_q"],
-                          params["lm_head_s"], mq, cfg.hidden_size)
-        else:  # prefill/eval: one dequant + plain MXU matmul.  Scales are
-            # applied in f32 (matching the GEMV's f32 epilogue) so prefill
-            # logits don't pick up an extra bf16 rounding of the scale.
-            w = (params["lm_head_q"].astype(jnp.float32)
-                 * params["lm_head_s"].astype(jnp.float32))
-            logits = xf.astype(jnp.float32) @ w
+        logits = jax.lax.dot_general(
+            xf, params["lm_head_q"].astype(xf.dtype),
+            (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
+        logits = logits * params["lm_head_s"].astype(jnp.float32)
         logits = logits[:, :cfg.vocab_size]
         logits = logits.reshape(B, S, cfg.vocab_size)
     else:

@@ -8,8 +8,8 @@ Reference behavior:
     'constant' term, fitted on the target hardware (consumed by
     solve_lat_const.py:113-123).
 
-Both are regenerated natively here (TPU measurements for the latency
-table), cached as JSON under assets/.
+Both are regenerated natively here (the latency table is measured on the
+card by fit_latency_coeffs.py), cached as JSON under assets/.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def quantizer_proxy_err(qstr: str, size: int = 4096, seed: int = 0) -> float:
     # Scaling conventions: the LUT families keep the `s / cbr` transform —
     # it reproduces the reference's published assets/quant_err.pt values
     # EXACTLY (tcq_6 0.01891, test_proxy_err_matches_reference_published).
-    # The TPU-native arithmetic families use the quantize-side convention
+    # The arithmetic families use the quantize-side convention
     # (incoherent.quantize_linear: input RMS = cb_rms * scale_override =
     # s * cbr for unit-RMS Wr).  For RMS-1 codebooks (1mad/2mad/dualmad)
     # the two agree to <0.1%; for sum2 (2-byte sums, RMS 1/sqrt2) the old

@@ -2,14 +2,13 @@
 
 Reference behavior: assets/3_8b_latency_coeffs_4090_cc.pt holds ~589
 individually measured per-{group}×{quantizer}×{variant} decode times.
-Measuring every combination here would need hundreds of multi-minute
-remote kernel compiles, so instead we fit a per-scheme-family model
+Measuring every combination would need hundreds of compiles, so instead
+we fit a per-scheme-family model
 
     lat(group, q) = launch_f + packed_bytes(group, q) / BW_f
 
-from a representative sample grid (fit_latency_coeffs.py / the
-job_20_lat_samples measurement), then emit the full table in the exact
-schema the solver consumes.  The table is tagged "model" so later rounds
+from a representative sample grid (fit_latency_coeffs.py), then emit the
+full table in the exact schema the solver consumes.  The table is tagged "model" so later rounds
 can replace entries with direct measurements incrementally.
 """
 
@@ -43,28 +42,18 @@ def fit_family_model(samples: List[Tuple[str, float, float]]):
 
 
 def family_of(qstr: str) -> str:
-    def _odd(q):
-        try:
-            return int(q.split("_")[1]) % 2 == 1
-        except (IndexError, ValueError):
-            return False
+    """Fit family: schemes whose decode cost per packed byte is alike."""
     if qstr.startswith("tcq2s"):
-        # dense planar + halved MXU feed: fastest fit.  Odd KV uses the
-        # double-tile layout whose decode runs slower per byte than the
-        # even single-tile one (measured r5) — separate fit family.
-        return "sum2o" if _odd(qstr) else "sum2"
+        return "sum2"  # one scramble per weight pair
     if qstr.startswith(("tcq1", "tcq2")):
-        return "tcq1o" if _odd(qstr) else "tcq1"
+        return "tcq1"  # one scramble per weight
     if qstr.startswith(("tcq", "tcomb", "comb")):
         return "tcq"
     return "vq"
 
 
 # when a family has no measured samples, borrow the nearest one
-FAMILY_FALLBACK = {"sum2o": ("sum2", "tcq1o", "tcq1"),
-                   "tcq1o": ("tcq1", "sum2o", "sum2"),
-                   "sum2": ("sum2o", "tcq1"),
-                   "tcq1": ("tcq1o", "sum2")}
+FAMILY_FALLBACK = {"sum2": ("tcq1",), "tcq1": ("sum2",)}
 
 
 def packed_bytes(cfg: LlamaConfig, group: str, qstr: str) -> float:
@@ -73,8 +62,8 @@ def packed_bytes(cfg: LlamaConfig, group: str, qstr: str) -> float:
 
 
 def kernel_calls(group: str, qstr: str) -> int:
-    """comb runs two fused kernels (row halves); tcomb is single-kernel
-    (fused padded-concat path)."""
+    """comb decodes its two row halves separately; the other schemes are
+    one decode + matmul per call."""
     return 2 if qstr.startswith("comb") else 1
 
 
@@ -106,7 +95,8 @@ def build_lat_table(cfg: LlamaConfig, qlist: List[str],
 
 
 def parse_samples_output(text: str, cfg: LlamaConfig):
-    """Parse job_20_lat_samples.py output lines into fit samples."""
+    """Parse "VQ bits vec m k us" / "TCQ KV S m k us" sample lines into
+    fit samples."""
     samples = []
     for line in text.splitlines():
         p = line.split()

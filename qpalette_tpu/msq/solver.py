@@ -8,12 +8,12 @@ Reference behavior:
     × kernel-impl flag; every base projection covered exactly once; latency
     constraint Σ lat_coeff + constant ≤ 1/target_thp.
 
-TPU build: OR-tools isn't available — we use scipy's HiGHS MILP
+OR-tools isn't a dependency — we use scipy's HiGHS MILP
 (scipy.optimize.milp) for exact solves plus a Lagrangian-relaxation fast
 path (per-layer decomposition: given a multiplier, each group picks its
 best quantizer independently, and we bisect on the multiplier).  The
 reference's `simt` flag (CUDA-core vs tensor-core kernels) maps to the
-XLA-vs-Pallas `impl` choice here.
+XLA-vs-kernel `impl` choice here.
 """
 
 from __future__ import annotations
@@ -43,16 +43,15 @@ QDICT_LAT = dict(QDICT_MEM, **{
 }, **{
     f"ldlq_2_{b}_none_1.0": b / 2 for b in range(3, 13)
 }, **{
-    # TPU-native gather-free trellis (arithmetic decode) — the schemes the
-    # latency-aware solver can pick for speed on TPU
+    # codebook-free trellis (arithmetic decode) — the schemes the
+    # decode-GEMV kernel runs
     f"tcq1_{b}_none_0.9": float(b) for b in range(2, 6)
 }, **{
-    # V=2 arithmetic trellis: KV/2 bits/weight, half the VPU decode work of
-    # tcq1 and fractional bitrates at odd KV
+    # V=2 arithmetic trellis: KV/2 bits/weight, one state window per
+    # weight pair, fractional bitrates at odd KV
     f"tcq2_{b}_none_0.9": b / 2 for b in range(4, 11)
 }, **{
-    # sum2 decode (one LCG scramble per pair, 2 int8/weight MXU feed,
-    # dense planar layout) — the latency-optimal family on v5e
+    # sum2 decode: one LCG scramble per weight pair
     f"tcq2s_{b}_none_0.9": b / 2 for b in range(4, 11)
 })
 

@@ -113,8 +113,7 @@ def decode_1mad(x: np.ndarray) -> np.ndarray:
     """Pure-ALU Gaussian-ish decoder: one multiply-add + byte-sum.
 
     Mirrors reference decode_1mad (bitshift.py:16-25); V=1 (one weight per
-    trellis state).  On TPU this runs on the VPU with ~13 single-cycle ops
-    per weight — the fast path that avoids tpu.dynamic_gather entirely."""
+    trellis state).  Pure integer arithmetic: no codebook lookup."""
     x = np.asarray(x).astype(np.uint64) & 0xFFFFFFFF
     x = (x * MAD1_A + MAD1_B) & 0xFFFFFFFF
     y = ((x & 255) + ((x >> 8) & 255) + ((x >> 16) & 255)
@@ -123,17 +122,14 @@ def decode_1mad(x: np.ndarray) -> np.ndarray:
 
 
 def decode_dualmad(x: np.ndarray) -> np.ndarray:
-    """V=2 arithmetic decoder (TPU-native 'tcq2'): one 16-bit state yields
-    TWO weights, each the sum of the four *signed* (int8-reinterpreted)
-    bytes of an independent LCG scramble h_i = u * A_i mod 2^32.
+    """V=2 arithmetic decoder ('tcq2'): one 16-bit state yields TWO
+    weights, each the sum of the four *signed* (int8-reinterpreted) bytes
+    of an independent LCG scramble h_i = u * A_i mod 2^32.
 
-    Design rationale (vs reference decode_1mad, bitshift.py:16-25): the
-    decode kernel derives one state window per WEIGHT PAIR instead of per
-    weight, halving VPU work; signed bytes make the int8 bitcast feed the
-    MXU byte-sum directly (no XOR 0x80808080, no +2*sum(x) correction, no
-    additive constant B).  Measured proxy err @3 bits/weight (KV=6):
-    0.0191 — ties the reference's tcq_6 LUT scheme (0.0189) while decoding
-    ~2x faster on the VPU.  Returns (len(x), 2) float32.
+    vs reference decode_1mad (bitshift.py:16-25): the decoder derives one
+    state window per WEIGHT PAIR instead of per weight.  Proxy err @3
+    bits/weight (KV=6): 0.0191 — ties the reference's tcq_6 LUT scheme
+    (0.0189).  Returns (len(x), 2) float32.
     """
     u = np.asarray(x).astype(np.uint64) & 0xFFFFFFFF
     out = []
@@ -147,18 +143,15 @@ def decode_dualmad(x: np.ndarray) -> np.ndarray:
 
 
 def decode_sum2(x: np.ndarray) -> np.ndarray:
-    """V=2 arithmetic decoder with a HALVED MXU feed ('tcq2s'): ONE LCG
-    scramble h = u*A + B per weight pair; weight 0 = signed bytes b0+b1,
-    weight 1 = b2+b3.
+    """V=2 arithmetic decoder ('tcq2s'): ONE LCG scramble h = u*A + B per
+    weight pair; weight 0 = signed bytes b0+b1, weight 1 = b2+b3.
 
-    vs decode_dualmad: the fused kernel stores one uint32 per PAIR (not
-    two), so the int8 byte matrix the MXU streams is 2 bytes/weight
-    instead of 4 — measured ~1.25-1.4x the fused dualmad rate on v5e
-    (scripts/proto_round3.py).  The marginal is Irwin-Hall-2 (triangular)
-    rather than Irwin-Hall-4, costing proxy err 0.0219 vs 0.0190 @3
-    bits/weight (scripts/proto_sum2_quality.py) — the latency-constrained
-    MSQ trades exactly this way (reference solve_lat_const.py picks
-    lower-quality/faster SIMT variants under a latency budget).
+    vs decode_dualmad: one scramble per pair instead of two, so about half
+    the decode work per weight.  The marginal is Irwin-Hall-2
+    (triangular) rather than Irwin-Hall-4 (assets/quant_err.json: tcq2s_6
+    0.0197 vs tcq_6 0.0189 @3 bits/weight) — the latency-constrained MSQ
+    trades exactly this way (reference solve_lat_const.py picks
+    lower-quality/faster variants under a latency budget).
     Returns (len(x), 2) float32."""
     u = np.asarray(x).astype(np.uint64) & 0xFFFFFFFF
     h = (u * MAD1_A + MAD1_B) & 0xFFFFFFFF
@@ -199,8 +192,8 @@ def decode_3inst(x: np.ndarray) -> np.ndarray:
 def trellis_lut_arith(mode: str) -> np.ndarray:
     """State->value table for the arithmetic decode modes: (2^16, 1) for
     the V=1 modes (1mad / 2mad), (2^16, 2) for dualmad (V=2 — two weights
-    per state).  Used by the host-side Viterbi/spec decoders; the TPU
-    kernel computes the same function inline."""
+    per state).  Used by the Viterbi encoder and the spec decoders; the
+    decode-GEMV kernel computes the same function inline."""
     s = np.arange(1 << L, dtype=np.uint64)
     if mode == "1mad":
         v = decode_1mad(s)

@@ -1,17 +1,15 @@
-"""Randomized-Hadamard incoherence rotations, TPU-native.
+"""Randomized-Hadamard incoherence rotations.
 
 Reference behavior: /root/reference/lib/utils/matmul_had.py — ``get_hadK(n)``
 factors n = K * 2^p with a hardcoded table of Hadamard matrices
 (K ∈ {12, 20, 28, ...}) and applies a CUDA fast-Walsh butterfly for the 2^p
 part (``matmul_hadU_cuda`` :137) plus a K×K matmul for the odd factor.
 
-TPU-native design: no butterfly kernel.  A Walsh-Hadamard transform of size
+Design: no butterfly kernel.  A Walsh-Hadamard transform of size
 n = K * a * b is the Kronecker product H_K ⊗ H_a ⊗ H_b, which we apply as
-three small dense matmuls on the MXU (reshape to (..., K, a, b) and contract
-each axis).  For n up to 2^15 every factor is ≤ 256, so each matmul tiles
-perfectly onto the 128×128 systolic array and XLA fuses the surrounding
-elementwise work (sign flips, scales) into the same loop nest.  This is both
-simpler and faster than a vector-unit butterfly on TPU.
+small dense matmuls (reshape to (..., K, a, b) and contract each axis).  For
+n up to 2^15 every factor is ≤ 256, and XLA fuses the surrounding
+elementwise work (sign flips, scales).
 
 Non-power-of-2 factors: instead of shipping Sloane's matrix tables
 (reference matmul_had.py:161-95747) we *construct* Hadamard matrices with the
@@ -105,7 +103,7 @@ def hadamard_matrix(k: int) -> np.ndarray:
     if k % 2 == 0:
         # Composite even order: H_k = H_{k/2} ⊗ H_2.  Entries stay ±1
         # whenever the odd core is Paley/Sylvester-constructible (e.g.
-        # 56 = 28·2, 112 = 28·4) — lets get_had_factors use wide sublane
+        # 56 = 28·2, 112 = 28·4) — lets get_had_factors use wide
         # factors without losing incoherence flatness.
         H2 = np.array([[1.0, 1.0], [1.0, -1.0]])
         return np.kron(hadamard_matrix(k // 2), H2)
@@ -131,7 +129,7 @@ def get_had_factors(n: int) -> tuple[int, ...]:
 
     Mirrors the role of reference get_hadK (matmul_had.py:10-65): pick the
     non-power-of-2 factor K, then split the remaining power of two into
-    MXU-friendly chunks.  Rule: m = odd(n); K = 1 if m == 1, else 4*m if a
+    chunks of at most 256.  Rule: m = odd(n); K = 1 if m == 1, else 4*m if a
     Paley/Sylvester Hadamard of order 4m exists (e.g. 7→28, 3→12, 5→20,
     27→108), else m itself with a random-orthogonal factor (e.g. 43 for
     Llama-2-7B's 11008).
@@ -155,8 +153,7 @@ def get_had_factors(n: int) -> tuple[int, ...]:
         return (n,)
     # Exactly two factors (a, b), both ≤ 256: _apply then runs ONE
     # relayout-free dual matmul (Haᵀ X H_b) instead of a moveaxis+dot per
-    # factor — the 3-factor loop cost ~63 µs per (1, 14336) decode
-    # rotation (scripts/diag_decode_breakdown.py), pure small-op overhead.
+    # factor (fewer small ops per decode rotation).
     for b in (256, 128, 64, 32, 16, 8, 4, 2):
         if p2 % b == 0 and n // b <= 256:
             return (n // b, b)
@@ -190,24 +187,29 @@ def _apply(x: jax.Array, n: int, transpose: bool) -> jax.Array:
     orig_shape = x.shape
     orig_dtype = x.dtype
     cdt = jnp.float32 if x.dtype != jnp.float64 else jnp.float64
+    # f32 inputs (weights and Hessians at quantization time) need a full
+    # f32 product: the GPU's default f32 matmul is TF32.  bf16 inputs are
+    # exact in TF32 (the factors are ±1).
+    prec = (jax.lax.Precision.HIGHEST
+            if x.dtype in (jnp.float32, jnp.float64) else None)
     facs, mats = _factor_mats(n, transpose, str(np.dtype(cdt)))
     if len(facs) == 2:
-        # one dual-sided contraction (Hₐ'X H_b'): two MXU matmuls, no
+        # one dual-sided contraction (Hₐ'X H_b'): two matmuls, no
         # relayouts — the decode-path fast case (all Llama dims)
         a, b = facs
         x2 = x.reshape((-1, a, b)).astype(cdt)
         y = jnp.einsum("zij,ia,jb->zab", x2, jnp.asarray(mats[0]),
-                       jnp.asarray(mats[1]))
+                       jnp.asarray(mats[1]), precision=prec)
         y = y * np.float64(n) ** -0.5
         return y.reshape(orig_shape).astype(orig_dtype)
     x = x.reshape((-1,) + facs).astype(cdt)
-    # contract each factor axis with its (small) Hadamard matrix on the MXU
+    # contract each factor axis with its (small) Hadamard matrix
     for ax, H in enumerate(mats):
         axis = 1 + ax
         x = jnp.moveaxis(x, axis, -1)
         x = jax.lax.dot_general(
             x, jnp.asarray(H), (((x.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=cdt)
+            precision=prec, preferred_element_type=cdt)
         x = jnp.moveaxis(x, -1, axis)
     x = x * np.float64(n) ** -0.5
     return x.reshape(orig_shape).astype(orig_dtype)

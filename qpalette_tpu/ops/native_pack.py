@@ -1,21 +1,53 @@
-"""ctypes binding for the native packed-format codecs (native/qpt_pack.cpp).
+"""ctypes binding for the native host library (native/qpt_pack.cpp and
+native/kmeans1d.cpp).
 
 Replaces the reference's numba packers (lib/quantizer/pack_op.py) for
-host-side quantization/IO; transparently falls back to the JAX codecs in
-ops/packing.py when the shared library hasn't been built
-(`make -C native`).
+host-side quantization/IO.  The library is not committed: the first use
+builds it from source with `make -C native`.  Where no C++ toolchain is
+available the callers fall back to the JAX codecs in ops/packing.py.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
+import warnings
 from typing import Optional
 
 import numpy as np
 
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "native")
+LIB_NAME = "libqpt_pack.so"
+
+_CDLL: Optional[ctypes.CDLL] = None
+_CDLL_TRIED = False
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+
+
+def native_library() -> Optional[ctypes.CDLL]:
+    """The shared library, built on first use.  The build writes a private
+    file name and renames it into place (atomic), so concurrent test
+    workers never load a half-written library."""
+    global _CDLL, _CDLL_TRIED
+    if _CDLL_TRIED:
+        return _CDLL
+    _CDLL_TRIED = True
+    path = os.path.join(NATIVE_DIR, LIB_NAME)
+    if not os.path.exists(path):
+        tmp = f"{LIB_NAME}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["make", "-s", "-C", NATIVE_DIR, f"LIB={tmp}"],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(os.path.join(NATIVE_DIR, tmp), path)
+        except (OSError, subprocess.SubprocessError) as e:
+            warnings.warn(f"building {path} failed ({e}); using the JAX "
+                          f"codecs")
+            return None
+    _CDLL = ctypes.CDLL(path)
+    return _CDLL
 
 
 def _lib() -> Optional[ctypes.CDLL]:
@@ -23,12 +55,9 @@ def _lib() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__)))), "native",
-        "libqpt_pack.so")
-    if not os.path.exists(path):
+    lib = native_library()
+    if lib is None:
         return None
-    lib = ctypes.CDLL(path)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.qpt_pack_rows.argtypes = [i32p, u32p, ctypes.c_int64,

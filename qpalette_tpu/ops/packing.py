@@ -6,11 +6,11 @@ Reference behavior being re-specified (NOT ported):
     lib/codebook/bitshift.py:296-329 and lib/quantizer/tcq_quant.py:46-60
   - executable decode spec: lib/utils/kernel_decompress.py:18-61
 
-TPU-native design
------------------
-The reference layouts are artifacts of CUDA mma fragment ownership.  On TPU
-the decode runs on the 8×128-lane VPU, so we use plain little-endian
-bitstreams with *static* window-extraction tables (computed at trace time):
+Design
+------
+The reference layouts are artifacts of CUDA mma fragment ownership.  Here
+the canonical formats are plain little-endian bitstreams with *static*
+window-extraction tables (computed at trace time):
 every packed index/state lives at a compile-time-known (word, shift), so the
 decode is a constant-index gather + two shifts + or + mask — fully
 vectorized, no data-dependent control flow.
@@ -180,8 +180,8 @@ def dequant_tcq(packed: jax.Array, lut: jax.Array, m: int, k: int,
 
     Within-tile sequence order: v=2 is m-major (p = 16*row + col, V=2
     weights per state); v=1 is K-MAJOR (p = 16*col + row) — chosen so the
-    planar kernel layout (kernels/formats.tcq1_planar_weights) maps
-    bitstream-consecutive states to one sublane's k-column group."""
+    decode-GEMV kernel (kernels/trellis_gemv.py) maps
+    bitstream-consecutive states to one k-column of the tile."""
     states = unpack_trellis(packed, KV, v)  # (T, 256//v)
     vals = jnp.take(lut, states, axis=0)  # (T, 256//v, v)
     tiles = vals.reshape(-1, TD, TD)
@@ -194,8 +194,8 @@ def dequant_tcq2(packed: jax.Array, lut: jax.Array, m: int, k: int,
                  KV: int) -> jax.Array:
     """tcq2 dequant (executable spec): V=2 trellis in PAIRED-K-MAJOR order —
     state s = 16*t + row covers weights (row, col=2t) and (row, col=2t+1)
-    of its 16x16 tile (quantizers._block_to_seqs_pairk; the layout the
-    tcq2 planar kernel decodes)."""
+    of its 16x16 tile (quantizers._block_to_seqs_pairk; the order the
+    decode-GEMV kernel decodes)."""
     states = unpack_trellis(packed, KV, 2)  # (T, 128)
     vals = jnp.take(lut, states, axis=0)  # (T, 128, 2)
     tiles = vals.reshape(-1, TD // 2, TD, 2)  # (T, t, row, c)

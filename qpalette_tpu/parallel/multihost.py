@@ -1,21 +1,23 @@
 """Multi-host distribution: jax.distributed init + DCN-aware meshes.
 
 Reference behavior being replaced: the reference is single-node (its
-NCCL/MPI hooks are vestigial); SURVEY §2.12 maps its TP/DP intent to the
-TPU-native stack.  On TPU pods, scaling past one host means:
+NCCL/MPI hooks are vestigial); SURVEY §2.12 maps its TP/DP intent to JAX.
+Scaling past one host means:
 
   * one JAX PROCESS per host, joined through ``jax.distributed.initialize``
     (GRPC coordinator) so all hosts share one global device list;
   * a mesh whose OUTER axis maps to the data-center network (DCN) between
-    hosts and whose INNER axes map to ICI within a host — collectives on
-    the inner axes (tensor-parallel psums, o/down row-parallel reductions)
-    ride ICI; only data-parallel gradient/token traffic crosses DCN
-    ("How to Scale Your Model" mesh recipe);
+    hosts and whose INNER axes stay within a host (NVLink between the
+    cards of one host) — collectives on the inner axes (tensor-parallel
+    psums, o/down row-parallel reductions) stay on the host; only
+    data-parallel token traffic crosses DCN;
   * partition specs that replicate weights across the DCN axis (each host
-    streams its full quantized copy — decode is HBM-bound, so weight
-    replication is the right trade at 8B scale) and shard the batch.
+    streams its full quantized copy — decode is bandwidth-bound, so
+    weight replication is the right trade at 8B scale) and shard the
+    batch.
 
-Tested via 2 CPU processes x 4 virtual devices each (no TPU pod needed):
+Four cards of one host need none of this (ROADMAP C9).  Tested via 2 CPU
+processes x 4 virtual devices each:
 tests/test_multihost.py launches real subprocesses with a coordinator and
 asserts a decode step matches the single-process result.
 """
@@ -39,8 +41,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
     All arguments default from the standard env vars
     (QPT_COORDINATOR / QPT_NUM_PROCESSES / QPT_PROCESS_ID), falling back
-    to jax.distributed's own auto-detection (TPU metadata server on real
-    pods — there every argument may be omitted)."""
+    to jax.distributed's own auto-detection (cluster environments it
+    recognises; elsewhere all three are required)."""
     kw = {}
     addr = coordinator_address or os.environ.get("QPT_COORDINATOR")
     if addr:
@@ -59,7 +61,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
 def dcn_mesh(tp: int, dp: Optional[int] = None,
              devices=None) -> Mesh:
     """Mesh with axes ('dp', 'tp'): 'dp' (outer) crosses hosts over DCN,
-    'tp' (inner) stays within a host on ICI.
+    'tp' (inner) stays within a host.
 
     Devices are ordered process-major (jax.devices() already groups by
     process), so rows of the (dp, tp) grid never straddle a host unless
@@ -73,7 +75,7 @@ def dcn_mesh(tp: int, dp: Optional[int] = None,
         assert tp <= jax.local_device_count(), (
             f"tp={tp} must fit within one host "
             f"({jax.local_device_count()} local devices) so tensor-"
-            f"parallel collectives ride ICI, not DCN")
+            f"parallel collectives stay within a host, not on DCN")
     arr = np.array(devices).reshape(dp, tp)
     return Mesh(arr, ("dp", "tp"))
 

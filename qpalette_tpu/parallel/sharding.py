@@ -4,18 +4,16 @@ Reference behavior: the reference is single-GPU; its only distribution
 surface is pipeline device_map splitting (lib/utils/unsafe_import.py:43-62)
 and vestigial tensor-parallel hooks (`rcp`/`tp_rank` buffers,
 lib/linear/quantized_linear.py:42-44, bitshift.py:374-388) that rescope the
-Hadamard to per-shard sizes.  This module is the TPU-native replacement per
-SURVEY.md §2.12: jax.sharding over an ICI mesh with XLA-inserted
-collectives.
+Hadamard to per-shard sizes.  This module is the jax.sharding replacement
+(SURVEY.md §2.12): a (dp, tp) device mesh with XLA-inserted collectives.
 
-Round-1 scheme (correct on any mesh, comm-suboptimal by ≤2×):
-every projection is column-parallel — packed codes, Wscale and the KV cache
-shard along output rows / heads, while incoherence rotations (SU ⊙ x then
-Hadamard) always see replicated activations, so the rotation math is
-untouched by sharding.  XLA inserts all-gathers where a sharded block
-output feeds the next replicated rotation.  (The reference `rcp` logic
-documents the per-shard-Hadamard alternative that converts these
-all-gathers into reduce-scatters; tracked as a follow-up optimization.)
+Placement (correct on any mesh): every projection is column-parallel —
+packed codes, Wscale and the KV cache shard along output rows / heads,
+while incoherence rotations (SU ⊙ x then Hadamard) always see replicated
+activations, so the rotation math is untouched by sharding.  XLA inserts
+all-gathers where a sharded block output feeds the next replicated
+rotation.  The row-parallel alternative (per-shard Hadamard, psum instead
+of all-gather) is the shard_map path in parallel/tp.py.
 
 Axes: ("dp", "tp") — batch shards over dp, weights over tp.
 """
@@ -42,12 +40,10 @@ def make_mesh(n_devices: Optional[int] = None, tp: Optional[int] = None,
 
 def _leaf_pspec(key: str, ndim: int) -> P:
     """PartitionSpec for a param leaf by name (see loader param schema)."""
-    if key in ("trellis", "trellis1", "trellis2", "qweight"):
-        return P("tp", None)
-    if key == "qweight_t":
+    if key == "qweight_t":  # (words over k, m)
         return P(None, "tp")
-    if key in ("trellis_kt", "trellis1_kt", "trellis2_kt", "trellis_pl"):
-        return P(None, None, "tp")
+    if key in ("trellis_kt", "trellis1_kt", "trellis2_kt"):
+        return P(None, None, "tp")  # (k/16, words, m/16)
     if key == "wscale":
         return P("tp")
     if key == "w":  # dense projection (out, in): column-parallel

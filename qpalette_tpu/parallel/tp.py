@@ -6,7 +6,8 @@ Reference behavior being replaced: the reference's vestigial TP hooks — the
 bitshift.py:374-388, lib/utils/data_utils.py:287-308) — which document how
 incoherence rotations must compose with row/col weight sharding but are
 never driven by any collective.  Here the whole decoder layer runs under
-``jax.shard_map`` over a tp mesh axis with XLA collectives on ICI:
+``jax.shard_map`` over a tp mesh axis with XLA collectives (NCCL over
+NVLink on a multi-GPU host):
 
   * q/k/v, up/gate: column-parallel (output rows sharded; the shared input
     rotation sees replicated activations — rotation math unchanged).
@@ -34,32 +35,30 @@ Input-split tcomb (the 3.25-bit quality flagship's scheme) IS row-parallel
 shardable: the loader quantizes o/down-tcomb against the block-permuted
 W[:, π] (in_perm_blocks = 2·tp, π = original blocks [0,2,...,1,3,...]) so
 each shard's contiguous activation slice holds one KV1 and one KV2 piece;
-placement interleaves the packed k-tiles shard-major
-(shard_interleave_tcomb_rows) and each shard runs a local tcomb with
-in_part/tp and a 2-block local rotation.  Output-split comb shards
-natively (both output halves see the full k split).
+each half's packed k-tiles shard natively, the permuted-space SU is
+interleaved shard-major (shard_interleave_tcomb_rows), and each shard runs
+a local tcomb with in_part/tp and a 2-block local rotation.  Output-split
+comb shards natively (both output halves see the full k split).
 
 Constraints (asserted): heads, kv-heads and intermediate divisible by tp
-(and each merged part's tile count by tp); the planar tcq1/tcq2 layouts
-split cleanly on k-tile boundaries because every 16×16 (or 16×32
-dense-odd double-) tile's bitstream is self-contained.
+(and each merged part's tile count by tp); the (k/16, words, m/16) trellis
+layout splits cleanly on k-tile boundaries because every 16x16 tile's
+bitstream is self-contained.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
-from typing import Optional
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from qpalette_tpu.models import llama
 from qpalette_tpu.models.llama import (AttnSpec, LlamaConfig, MLPSpec,
                                        ModelSpec)
 
+TRELLIS_LEAVES = ("trellis_kt", "trellis1_kt", "trellis2_kt")
 COL_PROJS = ("q", "k", "v", "up", "gate")
 ROW_PROJS = ("o", "down")
 MERGED_PROJS = ("qkv", "qk", "kv", "qv", "ug")
@@ -105,21 +104,12 @@ def _scale_linear_spec(lspec, tp: int, row: bool):
             n1, n2 = lspec.split
             assert n1 % (16 * tp) == 0 and n2 % (16 * tp) == 0, (n1, n2, tp)
             d["split"] = (n1 // tp, n2 // tp)
-        if lspec.kind in ("tcq1", "tcq2") and lspec.KV[0] % 2 == 1:
-            # dense odd-KV double-tile layout: each shard's k-tile count
-            # must stay even so the local kernel reads the same layout the
-            # global pack used (formats.planar_dense_odd)
-            from qpalette_tpu.kernels.formats import planar_dense_odd
-            if planar_dense_odd(lspec.KV[0], lspec.in_features):
-                assert (lspec.in_features // tp // 16) % 2 == 0, (
-                    f"odd-KV row-parallel needs (k/tp)/16 even "
-                    f"(k={lspec.in_features}, tp={tp})")
         if lspec.kind == "vq":
-            # packed word rows (k-major) must split evenly over tp
-            nwords8 = lspec.in_features // lspec.vec * lspec.bits // 32 // 8
-            assert nwords8 % tp == 0, (
-                f"VQ row-parallel needs (k*bits/vec/256) % tp == 0 "
-                f"(got {nwords8} words/8 for tp={tp})")
+            # each shard's index bitstream must start on a word boundary
+            lbits = lspec.in_features // tp // lspec.vec * lspec.bits
+            assert lbits % 32 == 0, (
+                f"VQ row-parallel needs (k/tp/vec*bits) % 32 == 0 "
+                f"(got {lbits} bits per shard for tp={tp})")
         d["in_features"] = lspec.in_features // tp
     else:
         assert lspec.out_features % tp == 0
@@ -173,25 +163,14 @@ def _leaf_pspec(proj: str, leaf: str, ndim: int, axis: str) -> P:
     row = proj in ROW_PROJS
     if leaf == "wscale":
         return P() if row else P(axis)
-    if leaf in ("trellis_kt", "trellis1_kt", "trellis2_kt", "trellis_pl",
-                "trellisc_kt"):
-        # (k/16, words, m/16): row-parallel shards k-tiles, col shards m.
-        # Row-parallel trellisc_kt (tcomb) additionally requires the
-        # shard-major k-tile interleave applied at placement time
-        # (shard_interleave_tcomb_rows).
+    if leaf in TRELLIS_LEAVES:
+        # (k/16, words, m/16): row-parallel shards k-tiles, col shards m
         return P(axis, None, None) if row else P(None, None, axis)
-    if leaf == "qweight_t":
-        # (8, words-over-k, m)
-        return P(None, axis, None) if row else P(None, None, axis)
+    if leaf == "qweight_t":  # (words over k, m)
+        return P(axis, None) if row else P(None, axis)
     if leaf == "w":  # dense (m, n)
         return P(None, axis) if row else P(axis, None)
-    if leaf in ("lut", "clut"):
-        return P()
-    if leaf == "trellis":  # canonical (m-tiles*k-tiles, words): xla path
-        raise NotImplementedError(
-            "tp path needs kernel (impl='pallas') or dense layouts; "
-            "canonical 'trellis' rows mix m- and k-tiles")
-    return P()
+    return P()  # lut
 
 
 def param_pspecs(spec: ModelSpec, params, axis: str = "tp"):
@@ -229,20 +208,13 @@ def _permute_merged_leaf(leaf: str, arr, perm1, perm16):
     """Reorder a merged projection's output rows into shard-major order."""
     if leaf == "wscale":
         return arr[perm1]
-    if leaf in ("trellis_kt", "trellis1_kt", "trellis2_kt", "trellis_pl",
-                "trellisc_kt"):
+    if leaf in TRELLIS_LEAVES:
         return arr[:, :, perm16]          # (k/16, words, m/16)
     if leaf == "qweight_t":
-        return arr[:, :, perm1]           # (8, words, m)
+        return arr[:, perm1]              # (words, m)
     if leaf == "w":
         return arr[perm1]                 # dense (m, n)
-    if leaf in ("lut", "clut"):
-        return arr
-    if leaf == "trellis":
-        raise NotImplementedError(
-            "tp path needs kernel (impl='pallas') layouts for merged "
-            "projections; canonical 'trellis' rows mix m- and k-tiles")
-    return arr
+    return arr  # lut
 
 
 def shard_interleave_merged(params, spec: ModelSpec, tp: int):
@@ -266,12 +238,12 @@ def shard_interleave_merged(params, spec: ModelSpec, tp: int):
 
 
 def shard_interleave_tcomb_rows(params, spec: ModelSpec, tp: int):
-    """Row-parallel input-split tcomb: reorder the packed k-tiles (and the
-    permuted-space SU vector) shard-major so a plain PartitionSpec over
-    the k-tile axis gives each shard its [KV1-slice | KV2-slice] rows —
-    matching the contiguous activation slice order the loader's
-    in_perm_blocks quantization arranged (reference rcp semantics for the
-    split schemes, bitshift.py:374-388)."""
+    """Row-parallel input-split tcomb: reorder the permuted-space SU
+    vector shard-major so a plain PartitionSpec gives each shard its
+    [KV1-slice | KV2-slice] signs — matching the contiguous activation
+    slice order the loader's in_perm_blocks quantization arranged
+    (reference rcp semantics for the split schemes, bitshift.py:374-388).
+    The two packed halves shard natively on their k-tile axes."""
     out_layers = []
     for lp, (aspec, mspec) in zip(params["layers"], spec.layers):
         nlp = dict(lp)
@@ -279,16 +251,9 @@ def shard_interleave_tcomb_rows(params, spec: ModelSpec, tp: int):
                                    ("down", "su_dp", mspec.in_perm_down)):
             if not perm or proj not in nlp:
                 continue
-            pp = dict(nlp[proj])
-            if "trellisc_kt" in pp:  # fused one-kernel tcomb layout;
-                # the two-array split layout shards each half natively
-                kt = pp["trellisc_kt"].shape[0]
-                pk = _shard_interleave([kt // 2, kt // 2], tp)
-                pp["trellisc_kt"] = pp["trellisc_kt"][pk]
             n = nlp[su_key].shape[0]
             pe = _shard_interleave([n // 2, n // 2], tp)
             nlp[su_key] = nlp[su_key][pe]
-            nlp[proj] = pp
         out_layers.append(nlp)
     return dict(params, layers=out_layers)
 

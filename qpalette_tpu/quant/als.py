@@ -8,12 +8,12 @@ the actual rotated weights) + lib/quantizer/nuq_op.py:84-365
   update_C — closed-form least-squares centroid solve (normal equations)
 with Hessian PD-dampening retries (nuq_op.py:298-314).
 
-TPU-native design (not a port): update_P is one lax.scan over positions
+Design (not a port): update_P is one lax.scan over positions
 carrying the residual Δ = Ŵ-W and its Hessian image S = Δ·H — choosing a
 centroid at position j is then a rank-`vec` update, and the per-position
 argmin is a (m, nc) matmul epilogue instead of the reference's gather of
 n_cluster^g_cd enumerated options.  update_C builds the (nc·vec)² normal
-matrix with batched one-hot einsums (MXU) instead of per-row Kronecker
+matrix with batched one-hot einsums instead of per-row Kronecker
 scatters.
 """
 
@@ -35,11 +35,14 @@ from qpalette_tpu.utils.kmeans import kmeans
 # nuq_op.py:117-119)
 _FULL_C_MAX = 1024
 
+# full f32 products (the GPU's default f32 matmul is TF32)
+_HI = jax.lax.Precision.HIGHEST
+
 
 @functools.partial(jax.jit, static_argnames=("nc",))
 def _assign(vecs, C, nc):
     norms = jnp.sum(C * C, axis=1)
-    cross = vecs @ C.T
+    cross = jnp.matmul(vecs, C.T, precision=_HI)
     return jnp.argmin(norms[None, :] - 2.0 * cross, axis=1)
 
 
@@ -57,7 +60,7 @@ def _cd_update(W, H, assign, C, nc: int, vec: int, cycles: int = 2):
     d = n // vec
     hat = jnp.take(C, assign, axis=0).reshape(m, n)
     delta = hat - W
-    S = delta @ H  # (m, n)
+    S = jnp.matmul(delta, H, precision=_HI)  # (m, n)
 
     def step(carry, j):
         delta, S, assign = carry
@@ -67,16 +70,17 @@ def _cd_update(W, H, assign, C, nc: int, vec: int, cycles: int = 2):
         dj = jax.lax.dynamic_slice(delta, (0, jv), (m, vec))
         sj = jax.lax.dynamic_slice(S, (0, jv), (m, vec))
         wj = jax.lax.dynamic_slice(W, (0, jv), (m, vec))
-        r = sj - dj @ Q  # (m, vec); Q symmetric
-        qq = jnp.sum((C @ Q) * C, axis=1)  # (nc,)
-        lin = (wj @ Q - r) @ C.T  # (m, nc)
+        r = sj - jnp.matmul(dj, Q, precision=_HI)  # (m, vec); Q symmetric
+        qq = jnp.sum(jnp.matmul(C, Q, precision=_HI) * C, axis=1)  # (nc,)
+        lin = jnp.matmul(jnp.matmul(wj, Q, precision=_HI) - r, C.T,
+                         precision=_HI)  # (m, nc)
         obj = qq[None, :] - 2.0 * lin
         a_new = jnp.argmin(obj, axis=1).astype(assign.dtype)
         cnew = jnp.take(C, a_new, axis=0)  # (m, vec)
         dnew = cnew - wj
         ddiff = dnew - dj
         delta = jax.lax.dynamic_update_slice(delta, dnew, (0, jv))
-        S = S + ddiff @ Hrows
+        S = S + jnp.matmul(ddiff, Hrows, precision=_HI)
         assign = assign.at[:, j].set(a_new)
         return (delta, S, assign), None
 
@@ -97,7 +101,7 @@ def _centroid_solve(W, H, assign, nc: int, vec: int, chunk: int = 16):
     m, n = W.shape
     d = n // vec
     k = nc * vec
-    WH = W @ H  # (m, n)
+    WH = jnp.matmul(W, H, precision=_HI)  # (m, n)
     b = (jnp.zeros((nc, vec), H.dtype)
          .at[assign].add(WH.reshape(m, d, vec))).reshape(k)
 
@@ -106,9 +110,11 @@ def _centroid_solve(W, H, assign, nc: int, vec: int, chunk: int = 16):
     def body(acc, a_chunk):  # a_chunk (B, d)
         P = jax.nn.one_hot(a_chunk, nc, dtype=H.dtype)  # (B, d, nc)
         # R[b, c1, u, :] = Σ_{j∈c1} H[j·vec+u, :]
-        R = jnp.einsum("jun,bjc->bcun", Hr, P)  # (B, nc, vec, n)
+        R = jnp.einsum("jun,bjc->bcun", Hr, P,
+                       precision=_HI)  # (B, nc, vec, n)
         Rr = R.reshape(-1, k, d, vec)
-        Ab = jnp.einsum("bkjv,bjc->kcv", Rr, P)  # (k, nc, vec)
+        Ab = jnp.einsum("bkjv,bjc->kcv", Rr, P,
+                        precision=_HI)  # (k, nc, vec)
         return acc + Ab.reshape(k, k), None
 
     B = chunk if m % chunk == 0 else 1

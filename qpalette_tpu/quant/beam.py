@@ -5,8 +5,7 @@ quantization through `cb.quantize_beam_search_with_hessian(thing, D_tiled,
 beam_sz=1024)`, minimizing the QUADRATIC tile objective e D̃ eᵀ (D̃ = the
 within-tile Hessian block) instead of plain MSE.  That method is never
 defined anywhere in the reference codebase — the beam branch is uncallable
-dead code — so this module is a working TPU-native realization of the
-intent.
+dead code — so this module is a working realization of the intent.
 
 Why beam: plain Viterbi is exact only for (block-)diagonal weighting; an
 off-diagonal D̃ couples sequence positions beyond the trellis state, so the
@@ -33,6 +32,8 @@ import jax
 import jax.numpy as jnp
 
 L = 16
+# full f32 products (the GPU's default f32 matmul is TF32)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _wrap_constraints(s0: jax.Array, S: int, KV: int):
@@ -57,7 +58,8 @@ def _wrap_constraints(s0: jax.Array, S: int, KV: int):
 def seq_objective(hat: jax.Array, X: jax.Array, Dt: jax.Array):
     """Per-tile quadratic objective e D̃ eᵀ; hat/X (B, T), Dt (T, T)."""
     e = (hat - X).astype(jnp.float32)
-    return jnp.einsum("bt,tu,bu->b", e, Dt.astype(jnp.float32), e)
+    return jnp.einsum("bt,tu,bu->b", e, Dt.astype(jnp.float32), e,
+                      precision=_HI)
 
 
 @functools.partial(jax.jit, static_argnames=("KV", "v", "beam"))
@@ -84,7 +86,7 @@ def tcq_quantize_beam(X: jax.Array, lut: jax.Array, Dt: jax.Array,
     # last state, state trace
     e0 = jnp.take(lutf, s0, axis=0) - X[:, :v]  # (B, v)
     Q0 = Dtf[:v, :v]
-    score0 = jnp.einsum("bv,vu,bu->b", e0, Q0, e0)
+    score0 = jnp.einsum("bv,vu,bu->b", e0, Q0, e0, precision=_HI)
     ehist = jnp.zeros((Bt, beam, T), jnp.float32)
     ehist = ehist.at[:, :, :v].set(e0[:, None, :])
     score = jnp.broadcast_to(score0[:, None], (Bt, beam)).astype(jnp.float32)
@@ -105,9 +107,9 @@ def tcq_quantize_beam(X: jax.Array, lut: jax.Array, Dt: jax.Array,
         e = w - xi[:, None, None, :]
         Q = jax.lax.dynamic_slice(Dtf, (i * v, i * v), (v, v))
         Drows = jax.lax.dynamic_slice(Dtf, (i * v, 0), (v, T))
-        r = jnp.einsum("bkt,vt->bkv", ehist, Drows)
-        quad = jnp.einsum("bkcv,vu,bkcu->bkc", e, Q, e)
-        lin = 2.0 * jnp.einsum("bkcv,bkv->bkc", e, r)
+        r = jnp.einsum("bkt,vt->bkv", ehist, Drows, precision=_HI)
+        quad = jnp.einsum("bkcv,vu,bkcu->bkc", e, Q, e, precision=_HI)
+        lin = 2.0 * jnp.einsum("bkcv,bkv->bkc", e, r, precision=_HI)
         fm = fmask[i]
         ok = (nb[None, None, :] & fm) == fval[:, i][:, None, None]
         cand = score[..., None] + quad + lin + jnp.where(ok, 0.0, BIG)

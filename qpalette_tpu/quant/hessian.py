@@ -12,8 +12,8 @@ Reference behavior:
     coeff(layer) = tr(H_group)/n · ||W||_F² / (m·n), i.e. the expected
     output-energy scale of a unit relative weight perturbation.
 
-TPU-native: no hooks — the functional forward is re-run with a capture list
-(one jit per layer-group batch), accumulating H in f32 on device.
+No hooks: the functional forward is re-run with a capture list (one jit
+per layer-group batch), accumulating H in f32 on device.
 """
 
 from __future__ import annotations
@@ -34,6 +34,11 @@ HESSKEY = {  # reference quantize_layer.py:10-18
     "self_attn.v_proj": "qkv", "self_attn.o_proj": "o",
     "mlp.up_proj": "up", "mlp.gate_proj": "up", "mlp.down_proj": "down",
 }
+
+
+def _gram(z):
+    """zᵀz in full f32 (the GPU's default f32 matmul is TF32)."""
+    return jnp.matmul(z.T, z, precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.partial(jax.jit, static_argnames=("spec",))
@@ -63,10 +68,10 @@ def _collect_step(spec, params, tokens, Hs):
                                     sin)
         Hq, Ho, Hu, Hd = Hs[li]
         new_Hs.append((
-            Hq + hq.T @ hq,
-            Ho + o_in.T @ o_in,
-            Hu + hu.T @ hu,
-            Hd + dp_in.T @ dp_in,
+            Hq + _gram(hq),
+            Ho + _gram(o_in),
+            Hu + _gram(hu),
+            Hd + _gram(dp_in),
         ))
         out = llama.mlp_forward(mspec, cfg, lp, h2,
                                 luts=params.get("luts", {}))

@@ -73,8 +73,8 @@ def parse_quantizer_str(qstr: str) -> QuantizerSpec:
     if fam in ("tcq1", "tcq1x2", "tcq2", "tcq2s"):
         # arithmetic-decode trellis: tcq1 = 1mad (V=1), tcq1x2 = 2mad (V=1),
         # tcq2 = dualmad (V=2, KV/2 bits/weight — fractional bitrates
-        # without comb splits), tcq2s = sum2 (V=2, halved MXU feed — the
-        # latency-optimal point of the palette)
+        # without comb splits), tcq2s = sum2 (V=2, one scramble per weight
+        # pair — the cheapest decode of the palette)
         _, kv, hess, scale = parts
         return QuantizerSpec(qstr, fam, hess == "hess", float(scale),
                              KV=(int(kv),))

@@ -1,4 +1,4 @@
-"""Block-LDL decomposition + LDLQ feedback quantization, TPU-native.
+"""Block-LDL decomposition + LDLQ feedback quantization.
 
 Reference behavior:
   - block_LDL: lib/utils/math_utils.py:14-43 (Cholesky → block-normalized L)
@@ -6,8 +6,8 @@ Reference behavior:
     right-to-left, quantize W + (W - Ŵ)·L per block, with a 128-column
     buffer level ("prod_cache") to keep the matmuls large.
 
-TPU-native design: the two-level buffering becomes two nested lax.scan's
-(outer over 128-column buffers with one (m,n)@(n,128) MXU matmul each,
+Design: the two-level buffering becomes two nested lax.scan's
+(outer over 128-column buffers with one (m,n)@(n,128) matmul each,
 inner over per-block steps with small in-buffer matmuls).  reverse=True
 scans keep code order natural.  The quantize callback is a pluggable
 function so TCQ (Viterbi), VQ and SQ reuse the same recursion — replacing
@@ -23,6 +23,9 @@ import jax
 import jax.numpy as jnp
 
 __all__ = ["block_ldl", "ldlq", "regularize_h"]
+
+# every f32 product here needs full f32: the GPU's default is TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 def regularize_h(H: jax.Array, sigma_reg: float = 0.01) -> jax.Array:
@@ -72,10 +75,11 @@ def block_ldl(H: jax.Array, b: int):
     # diagonal b×b blocks of C
     Cb = C.reshape(m, b, m, b)
     DL = Cb[jnp.arange(m), :, jnp.arange(m), :]  # (m, b, b), lower-tri
-    D = DL @ DL.transpose(0, 2, 1)
+    D = jnp.matmul(DL, DL.transpose(0, 2, 1), precision=_HI)
     DLinv = jnp.linalg.inv(DL)
     # right-multiply each block column by DLinv
-    Lb = jnp.einsum("rmb,mbc->rmc", C.reshape(n, m, b), DLinv)
+    Lb = jnp.einsum("rmb,mbc->rmc", C.reshape(n, m, b), DLinv,
+                    precision=_HI)
     L = Lb.reshape(n, n)
     # zero the diagonal blocks (strictly block-lower)
     blk = jax.lax.broadcasted_iota(jnp.int32, (m, 1, m, 1), 0)
@@ -110,7 +114,7 @@ def ldlq(W: jax.Array, Lmat: jax.Array,
         Lcol = jax.lax.dynamic_slice(Lbuf_ref[0], (0, sl), (buf, block))
         E = (jax.lax.dynamic_slice(Wbuf, (0, sl), (m, block))
              + jax.lax.dynamic_slice(prod, (0, sl), (m, block))
-             + (Wbuf - hat_buf) @ Lcol)
+             + jnp.matmul(Wbuf - hat_buf, Lcol, precision=_HI))
         hat_blk, codes = quant_block(E, base_idx + j)
         hat_buf = jax.lax.dynamic_update_slice(hat_buf, hat_blk, (0, sl))
         return (hat_buf, Wbuf, prod, base_idx), codes
@@ -128,7 +132,7 @@ def ldlq(W: jax.Array, Lmat: jax.Array,
         row_ids = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
         outside = (row_ids < c0) | (row_ids >= c0 + buf)
         Lcross = jnp.where(outside, Lcols, 0.0)
-        prod = (W - hatW) @ Lcross  # (m, buf)
+        prod = jnp.matmul(W - hatW, Lcross, precision=_HI)  # (m, buf)
         Lbuf = jax.lax.dynamic_slice(Lcols, (c0, 0), (buf, buf))
         Lbuf_ref[0] = Lbuf
 

@@ -7,8 +7,8 @@ Reference behavior:
   - VQ-ALS ("sq_*"/"vq2_*"): lib/quantizer/vq_quant.py + nuq_op.py
 
 All quantizers consume an incoherence-rotated, row-normalized weight Wr and
-(optionally) a rotated Hessian, and emit packed codes in the TPU formats of
-ops/packing.py.  Everything is jit-compiled per (shape, scheme) — the
+(optionally) a rotated Hessian, and emit packed codes in the canonical
+formats of ops/packing.py.  Everything is jit-compiled per (shape, scheme) — the
 trace-time specialization that replaces the reference's per-shape CUDA
 codegen (lib/linear/__init__.py:9-420).
 """
@@ -43,8 +43,8 @@ def _block_to_seqs(E: jax.Array, kmajor: bool = False) -> jax.Array:
     """(m, 16) column block -> (m/16, 256) tile sequences.
 
     kmajor=False: p = 16*row + col (V=2 trellis).  kmajor=True:
-    p = 16*col + row (V=1 trellis — matches the planar kernel layout,
-    see ops/packing.dequant_tcq)."""
+    p = 16*col + row (V=1 trellis — the order the decode-GEMV kernel
+    reads, see ops/packing.dequant_tcq)."""
     m = E.shape[0]
     t = E.reshape(m // TD, TD, TD)
     if kmajor:
@@ -62,8 +62,8 @@ def _seqs_to_block(hat: jax.Array, m: int, kmajor: bool = False) -> jax.Array:
 def _block_to_seqs_pairk(E: jax.Array) -> jax.Array:
     """(m, 16) column block -> (m/16, 256) in PAIRED-K-MAJOR order:
     seq position 32*t + 2*row_in_tile + c is weight (row, col=2t+c) —
-    trellis state s = 16*t + row covers two k-adjacent weights, matching
-    the tcq2 planar kernel layout (kernels/formats.tcq2_planar_weights)."""
+    trellis state s = 16*t + row covers two k-adjacent weights, the order
+    the decode-GEMV kernel reads (kernels/trellis_gemv.py)."""
     m = E.shape[0]
     t = E.reshape(m // TD, TD, TD // 2, 2)  # (tile, row, t, c)
     return t.transpose(0, 2, 1, 3).reshape(m // TD, TD * TD)
@@ -116,7 +116,7 @@ def _tcq_core(Wr, H, lut, KV: int, use_hess: bool, v: int = 2,
 
 @functools.partial(jax.jit, static_argnames=("KV", "use_hess"))
 def _tcq2_core(Wr, H, lut, KV: int, use_hess: bool):
-    """V=2 trellis in paired-k-major order (tcq2 planar kernel layout)."""
+    """V=2 trellis in paired-k-major order (the decode-GEMV kernel's)."""
     m, n = Wr.shape
     L = _ldl_or_zero(H if use_hess else None, n, TD)
 
@@ -172,8 +172,10 @@ def _vq_ldlq_core(Wr, H, lut, bits: int, vec: int, use_hess: bool):
     L = _ldl_or_zero(H if use_hess else None, n, vec)
 
     def qblock(E, _idx):
-        # E (m, vec): nearest centroid, MXU cross-term
-        cross = E.astype(jnp.float32) @ lutf.T  # (m, 2^bits)
+        # E (m, vec): nearest centroid via the cross-term (full f32: the
+        # GPU's default f32 matmul is TF32)
+        cross = jnp.matmul(E.astype(jnp.float32), lutf.T,
+                           precision=jax.lax.Precision.HIGHEST)
         idx = jnp.argmin(norms[None, :] - 2.0 * cross, axis=1)
         hat = jnp.take(lutf, idx, axis=0)
         return hat, idx.astype(jnp.int32)
@@ -210,7 +212,7 @@ def quantize_mat_tcq1(Wr, H, KV: int, mode: str = "1mad",
                       use_hess: bool = False, beam: int = 0):
     """V=1 trellis with an arithmetic (gather-free) decoder — reference
     decode modes 1mad/2mad (bitshift.py:16-39, 110-117).  KV bits/weight;
-    the TPU decode kernel computes the LCG+byte-sum inline (no LUT)."""
+    the decode-GEMV kernel computes the LCG+byte-sum inline (no LUT)."""
     lut = jnp.asarray(trellis_lut_arith(mode))
     hatW, packed = _tcq_core(Wr, H if H is not None else Wr[:1, :1] * 0,
                              lut, KV, use_hess and H is not None, v=1,
@@ -225,14 +227,14 @@ def quantize_mat_tcq1(Wr, H, KV: int, mode: str = "1mad",
 
 def quantize_mat_tcq2(Wr, H, KV: int, use_hess: bool = False,
                       mode: str = "dualmad"):
-    """V=2 arithmetic trellis (TPU-native 'tcq2'): KV bits per STATE =
-    KV/2 bits per weight (odd KV gives fractional bitrates without comb
-    splits).  Decode modes (ops/codebooks.py):
-      dualmad — two LCG scrambles per pair, 4 signed bytes per weight on
-        the MXU; ~2x the VPU decode rate of tcq1 at reference quality.
-      sum2 ('tcq2s') — one scramble per pair, 2 signed bytes per weight
-        on the MXU; ~1.3x faster fused decode, slightly higher proxy err
-        (the latency-constrained point of the palette)."""
+    """V=2 arithmetic trellis ('tcq2'): KV bits per STATE = KV/2 bits per
+    weight (odd KV gives fractional bitrates without comb splits).  Decode
+    modes (ops/codebooks.py):
+      dualmad — two LCG scrambles per pair, 4 signed bytes per weight;
+        one state window per weight pair, at reference quality.
+      sum2 ('tcq2s') — one scramble per pair, 2 signed bytes per weight;
+        about half the decode work, slightly higher proxy err (the
+        latency-constrained point of the palette)."""
     lut = jnp.asarray(trellis_lut_arith(mode))
     hatW, packed = _tcq2_core(Wr, H if H is not None else Wr[:1, :1] * 0,
                               lut, KV, use_hess and H is not None)

@@ -1,19 +1,20 @@
-"""Tail-biting Viterbi encoder for the bitshift trellis (TCQ), TPU-native.
+"""Tail-biting Viterbi encoder for the bitshift trellis (TCQ).
 
 Reference behavior: lib/codebook/bitshift.py:202-294 — a torch.compile'd DP
 over 2^16 states with gathers over 2^KV candidate predecessors, batched over
 columns, plus the two-pass tail-biting scheme (roll by half, re-encode with
 the junction state constrained).
 
-TPU-native redesign (same math, different convention and kernelization):
+Redesign (same math, different convention and kernelization):
 
 * Transition convention: s_{i+1} = (s_i >> KV) | (new_bits << (L-KV)), chosen
   so that (see ops/packing.py) a state is a plain little-endian bit window
   and — crucially — the predecessors of state s form the *contiguous* range
   [(s & mask) << KV, ((s & mask) + 1) << KV).  The DP min-over-predecessors
-  is then a reshape + minor-axis reduction (VPU-friendly), not a gather.
-* Distance computation rides the MXU: ||lut[s] - x||² = ||lut[s]||² - 2·x·lut[s]
-  (+ const) so each DP step is one (B, V) @ (V, 2^L) matmul plus elementwise.
+  is then a reshape + minor-axis reduction, not a gather.
+* Distance computation is a matmul: ||lut[s] - x||² = ||lut[s]||² - 2·x·lut[s]
+  (+ const) so each DP step is one (B, V) @ (V, 2^L) matmul (full f32)
+  plus elementwise.
 * The whole encode is a single lax.scan; backtrace pointers are 2^KV-way
   argmins stored as uint8.
 """
@@ -41,7 +42,8 @@ def _state_err(x_step: jax.Array, lutf: jax.Array, norms: jax.Array):
     """x_step (B, V) -> err (B, 2^L) up to a per-step constant."""
     cross = jax.lax.dot_general(
         x_step.astype(jnp.float32), lutf.T,
-        (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
+        (((1,), (0,)), ((), ())), precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32)
     return norms[None, :] - 2.0 * cross
 
 

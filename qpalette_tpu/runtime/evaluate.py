@@ -26,18 +26,18 @@ def ce_loss(spec, params, tokens, chunk: int = 1024):
     h = llama.forward(spec, params, tokens, return_hidden=True)  # (B,S,hid)
     vocab = spec.config.vocab_size
     if spec.lm_head_spec is not None:
-        # 4-bit trellis lm_head: same qlinear path forward() uses (chunk
-        # calls share one hoisted dequant under jit); rotation applied
-        # inside, pad columns sliced after
+        # 4-bit trellis lm_head: same rotation + qlinear path forward()
+        # uses (chunk calls share one hoisted dequant under jit), pad
+        # columns sliced after
         from qpalette_tpu.runtime.qlinear import qlinear_apply
         B, S = tokens.shape
         total = jnp.float32(0.0)
         for c0 in range(0, S - 1, chunk):
             c1 = min(c0 + chunk, S - 1)
             hc = h[:, c0:c1].reshape(-1, h.shape[-1])
+            hc = llama._rotate_in(hc, params["lm_head_su"].astype(hc.dtype))
             logits = qlinear_apply(spec.lm_head_spec, params["lm_head_q4"],
-                                   hc, params.get("luts"),
-                                   pre_rot=(params["lm_head_su"], 1))
+                                   hc, params.get("luts"))
             logits = logits.astype(jnp.float32)[:, :vocab]
             logits = logits.reshape(B, c1 - c0, vocab)
             logp = jax.nn.log_softmax(logits, axis=-1)

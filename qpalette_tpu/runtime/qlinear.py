@@ -1,20 +1,23 @@
 """Quantized-linear dispatch: one apply function per packed scheme.
 
 Reference behavior: lib/linear/{tcq_linear,vq_linear,comb_linear}.py — each
-module picks a fused CUDA kernel for bs ≤ 8 and falls back to
+module picks a fused CUDA kernel for bs <= 8 and falls back to
 dequant-then-matmul for larger batch (tcq_linear.py:64-84).
 
-TPU-native: `qlinear_apply` dispatches on a hashable LinearSpec at trace
-time (replacing the reference's per-shape op registry,
-lib/linear/__init__.py:43-420).  Paths:
-  - 'xla'    : dequant to bf16 in-graph, then MXU matmul (correctness path
-               and the large-batch path; XLA fuses scale epilogues)
-  - 'pallas' : fused decode+matmul kernels (qpalette_tpu.kernels), used for
-               small-batch decode where HBM bandwidth on packed weights is
-               the bottleneck
-The expanded 2^16-state trellis LUT is shared across layers via the model's
-`luts` dict (one entry per tlut_bits), mirroring how all reference TCQ
-layers share the cached kmeans tlut (bitshift.py:148-160).
+`qlinear_apply` dispatches on a hashable LinearSpec at trace time
+(replacing the reference's per-shape op registry,
+lib/linear/__init__.py:43-420).  Every kind keeps one packed layout on the
+device (kernels/formats.py), which both paths read.  The loader records in
+`LinearSpec.impl` which path a projection takes:
+  - 'xla'    : decode the packed weight to W^T in-graph, then one XLA
+               matmul with f32 accumulation.  Every kind; also the large-
+               row path of 'pallas'.
+  - 'pallas' : the decode-GEMV kernel (kernels/trellis_gemv.py) for the
+               arithmetic trellis kinds (tcq1, tcq2) at <= GEMV_MAX_ROWS
+               rows.  The loader never assigns it to another kind.
+The expanded 2^16-state trellis LUT of the LUT kinds is shared across
+layers via the model's `luts` dict (one entry per tlut_bits), mirroring how
+all reference TCQ layers share the cached kmeans tlut (bitshift.py:148-160).
 """
 
 from __future__ import annotations
@@ -25,12 +28,19 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from qpalette_tpu.ops import packing
+# kinds the decode-GEMV kernel implements
+KERNEL_KINDS = ("tcq1", "tcq2")
+# rows at or below which impl='pallas' runs the decode-GEMV kernel; above
+# it the packed weight is decoded once and the rows ride one matmul (the
+# reference splits at bs<=8, tcq_linear.py:64-84).  On an H100 the kernel
+# beats the decode-then-matmul path on the 28672x4096 gate-up projection
+# up to 16 rows and loses at 32 (see PERF.md)
+GEMV_MAX_ROWS = 16
 
 
 @dataclass(frozen=True)
 class LinearSpec:
-    kind: str                 # dense | tcq | tcomb | comb | vq
+    kind: str                 # dense | tcq | tcq1 | tcq2 | tcomb | comb | vq
     in_features: int
     out_features: int
     KV: tuple = ()            # (KV,) or (KV1, KV2)
@@ -38,140 +48,134 @@ class LinearSpec:
     bits: int = 0
     vec: int = 0
     split: tuple = ()         # in_part (tcomb) or out_part (comb)
-    mode: str = ""            # tcq1 decode mode (1mad | 2mad)
+    mode: str = ""            # arithmetic decode mode (1mad|2mad|dualmad|sum2)
     impl: str = "xla"         # xla | pallas
 
     def tcq_lut_key(self) -> str:
         return f"tcq{self.tlut_bits}"
 
 
-def dequant_weight(spec: LinearSpec, p: dict, luts: dict) -> jax.Array:
-    """Decode packed weights to a dense (m, n) matrix (rotated space,
-    unscaled)."""
-    m, n = spec.out_features, spec.in_features
-    if spec.kind == "tcq":
-        lut = luts[spec.tcq_lut_key()]
-        return packing.dequant_tcq(p["trellis"], lut, m, n, spec.KV[0])
-    if spec.kind == "tcq1":
-        lut = luts[f"mad_{spec.mode}"]
-        return packing.dequant_tcq(p["trellis"], lut, m, n, spec.KV[0],
-                                   v=1)
-    if spec.kind == "tcq2":
-        return packing.dequant_tcq2(p["trellis"], luts[f"mad_{spec.mode}"],
-                                    m, n, spec.KV[0])
-    if spec.kind == "tcomb":
-        lut = luts[spec.tcq_lut_key()]
-        n1, n2 = spec.split
-        w1 = packing.dequant_tcq(p["trellis1"], lut, m, n1, spec.KV[0])
-        w2 = packing.dequant_tcq(p["trellis2"], lut, m, n2, spec.KV[1])
-        return jnp.concatenate([w1, w2], axis=1)
-    if spec.kind == "comb":
-        lut = luts[spec.tcq_lut_key()]
-        m1, m2 = spec.split
-        w1 = packing.dequant_tcq(p["trellis1"], lut, m1, n, spec.KV[0])
-        w2 = packing.dequant_tcq(p["trellis2"], lut, m2, n, spec.KV[1])
-        return jnp.concatenate([w1, w2], axis=0)
+def resolve_impl(kind: str, impl: str) -> str:
+    """The path a projection of `kind` takes when the session asks for
+    `impl`: the kernel exists only for KERNEL_KINDS."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown impl {impl!r} (xla | pallas)")
+    return impl if kind in KERNEL_KINDS else "xla"
+
+
+def _trellis_states(tr_kt, KV: int, V: int):
+    """(k/16, W, m/16) packed tiles -> (k/16, 256/V, m/16) 16-bit states
+    (state s of a tile starts at stream bit s*KV, circular)."""
+    from qpalette_tpu.kernels.trellis_gemv import state_windows
+    W = tr_kt.shape[1]
+    off = jnp.arange(256 // V, dtype=jnp.int32) * KV
+    j0 = off >> 5
+    lo = jnp.take(tr_kt, j0, axis=1)
+    hi = jnp.take(tr_kt, (j0 + 1) % W, axis=1)
+    sh = (off & 31).astype(jnp.uint32)[None, :, None]
+    return state_windows(lo, hi, sh)
+
+
+def _tcq_lut_t(tr_kt, lut, KV: int):
+    """LUT-decoded V=2 trellis (m-major in the tile: state 8*row + p holds
+    weights (row, 2p), (row, 2p+1)) -> W^T (k, m)."""
+    kt, _, mt = tr_kt.shape
+    vals = jnp.take(lut, _trellis_states(tr_kt, KV, 2).astype(jnp.int32),
+                    axis=0)                           # (kt, 128, mt, 2)
+    vals = vals.reshape(kt, 16, 8, mt, 2)             # (kt, row, p, mt, c)
+    return vals.transpose(0, 2, 4, 3, 1).reshape(kt * 16, mt * 16)
+
+
+def _arith_int_t(tr_kt, KV: int, mode: str):
+    """Arithmetic-decoded trellis (tcq1 k-major / tcq2 paired-k-major:
+    state 16*a + row holds weight(s) (row, V*a + c)) -> W^T (k, m) f32 of
+    the integer byte sums; the weights are these times MAD_INV."""
+    from qpalette_tpu.kernels.trellis_gemv import arith_sums, mode_v
+    V = mode_v(mode)
+    kt, _, mt = tr_kt.shape
+    sums, bias = arith_sums(_trellis_states(tr_kt, KV, V), mode)
+    vals = jnp.stack([(s.astype(jnp.int32) - bias).astype(jnp.float32)
+                      for s in sums], axis=2)          # (kt, 256/V, V, mt)
+    vals = vals.reshape(kt, 16 // V, 16, V, mt)        # (kt, a, row, c, mt)
+    return vals.transpose(0, 1, 3, 4, 2).reshape(kt * 16, mt * 16)
+
+
+def _vq_t(qw_t, lut, bits: int, vec: int):
+    """qweight_t (P*bits/32, m) -> W^T (P*vec, m)."""
+    P = qw_t.shape[0] * 32 // bits
+    off = jnp.arange(P, dtype=jnp.int32) * bits
+    j0 = off >> 5
+    lo = jnp.take(qw_t, j0, axis=0)
+    hi = jnp.take(qw_t, (j0 + 1) % qw_t.shape[0], axis=0)
+    sh = (off & 31).astype(jnp.uint32)[:, None]
+    idx = ((lo >> sh) | ((hi << (jnp.uint32(31) - sh)) << jnp.uint32(1))
+           ) & jnp.uint32((1 << bits) - 1)
+    vals = jnp.take(lut, idx.astype(jnp.int32), axis=0)   # (P, m, vec)
+    return vals.transpose(0, 2, 1).reshape(P * vec, qw_t.shape[1])
+
+
+def _decode_t(spec: LinearSpec, p: dict, luts: dict):
+    """(W^T f32, s): the weights are W^T * s.  The arithmetic kinds decode
+    to their integer byte sums, exact in bf16 for sum2 (|v| <= 256), and
+    take the 1/MAD_SCALE factor after the matmul, as the kernel does."""
+    if spec.kind in KERNEL_KINDS:
+        from qpalette_tpu.kernels.trellis_gemv import MAD_INV
+        return _arith_int_t(p["trellis_kt"], spec.KV[0], spec.mode), MAD_INV
+    return dequant_weight_t(spec, p, luts), 1.0
+
+
+def dequant_weight_t(spec: LinearSpec, p: dict, luts: dict) -> jax.Array:
+    """Decode packed weights to dense W^T (in, out) f32 (rotated space,
+    unscaled by Wscale)."""
+    if spec.kind in KERNEL_KINDS:
+        wt, s = _decode_t(spec, p, luts)
+        return wt * s
     if spec.kind == "vq":
-        return packing.dequant_lut(p["qweight"], p["lut"], m, n,
-                                   spec.bits, spec.vec)
+        return _vq_t(p["qweight_t"], p["lut"].astype(jnp.float32),
+                     spec.bits, spec.vec)
+    lut = luts[spec.tcq_lut_key()].astype(jnp.float32)
+    if spec.kind == "tcq":
+        return _tcq_lut_t(p["trellis_kt"], lut, spec.KV[0])
+    w1 = _tcq_lut_t(p["trellis1_kt"], lut, spec.KV[0])
+    w2 = _tcq_lut_t(p["trellis2_kt"], lut, spec.KV[1])
+    if spec.kind == "tcomb":  # input split
+        return jnp.concatenate([w1, w2], axis=0)
+    if spec.kind == "comb":   # output split
+        return jnp.concatenate([w1, w2], axis=1)
     raise ValueError(spec.kind)
-
-
-def can_fuse_rot(spec: LinearSpec, rows: int, rot_blocks: int = 1) -> bool:
-    """True if the fused-rotation activation prologue applies: arithmetic
-    trellis decode kernel (tcq1 any mode / tcq2 sum2 — dualmad's x-perm is
-    not a plain repeat), decode regime, and a ≤2-factor Hadamard for the
-    (per-block) rotation width."""
-    if spec.impl not in ("pallas", "pallas_a8") or rows > 8:
-        return False
-    if spec.kind == "tcq1":
-        pass
-    elif spec.kind == "tcq2" and spec.mode == "sum2":
-        pass
-    else:
-        return False
-    from qpalette_tpu.ops.hadamard import get_had_factors
-    facs = get_had_factors(spec.in_features // rot_blocks)
-    if len(facs) > 2:
-        return False
-    from qpalette_tpu.kernels.formats import planar_dense_odd
-    if planar_dense_odd(spec.KV[0], spec.in_features):
-        # the dense odd-KV byte-row permutation folds into the rotation's
-        # last Kronecker factor only if 32-col double-tile groups align
-        # with that factor's column blocks
-        return facs[-1] % 32 == 0
-    return True
 
 
 def qlinear_apply(spec: LinearSpec, p: dict, z: jax.Array,
                   luts: Optional[dict] = None,
-                  pre_rot=None, out_dtype=None) -> jax.Array:
-    """z (rows, in_features) — already incoherence-rotated — -> (rows, out).
-
-    pre_rot=(su, rot_blocks): z is UN-rotated and the rotation is fused
-    into the kernel's activation prologue when can_fuse_rot holds;
-    otherwise it is applied here explicitly (same math either way).
+                  out_dtype=None) -> jax.Array:
+    """z (rows, in_features), already incoherence-rotated -> (rows, out).
 
     Applies the per-row Wscale epilogue (reference incoherent_linear.py:495).
     out_dtype overrides the output dtype (default: z's dtype) — the
     quantized lm_head passes f32 so final logits skip the bf16 round-trip
-    the decoder layers want (matching the int8 head's f32 epilogue).
+    the decoder layers want.  Under impl='xla' the weight is decoded in
+    z's dtype, so an f32 model is an f32 reference end to end.
     """
     odt = out_dtype or z.dtype
-    if pre_rot is not None and not can_fuse_rot(spec, z.shape[0],
-                                                pre_rot[1]):
-        from qpalette_tpu.ops.hadamard import hadamard_transform_t
-        su, blocks = pre_rot
-        z = hadamard_transform_t(z * su.astype(z.dtype),
-                                 blocks=blocks).astype(z.dtype)
-        pre_rot = None
-    if spec.kind == "dense":
-        w = p["w"]
-        return jax.lax.dot_general(
-            z, w, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32).astype(odt)
-    if spec.kind == "dense_rot":
-        # rotated-dense baseline (QuaRot-style): full-precision weights in
-        # the rotated space, same Wscale epilogue as quantized layers
+    if spec.kind in ("dense", "dense_rot"):
         y = jax.lax.dot_general(
             z, p["w"], (((1,), (1,)), ((), ())),
             preferred_element_type=jnp.float32)
-        return (y * p["wscale"][None, :].astype(jnp.float32)).astype(odt)
-    # fused decode+matmul cutoff: the reference splits at bs<=8
-    # (tcq_linear.py:64-84) because its SIMT GEMV is row-serial; the TPU
-    # arithmetic-trellis kernels feed an MXU dot whose M dimension is the
-    # row count, so streaming packed weights stays cheaper than
-    # dequantize-to-HBM up to a few hundred rows — covering chunked-
-    # prefill admission in the serving engine in ONE dispatch per chunk.
-    fused_rows = 256 if spec.kind in ("tcq1", "tcq2") else 8
-    if spec.impl in ("pallas", "pallas_a8") and z.shape[0] <= fused_rows:
-        from qpalette_tpu.kernels import fused
-        y = fused.decode_matmul(spec, p, z, luts, pre_rot=pre_rot)
-    elif (spec.impl == "pallas_a8" and spec.kind in ("tcq1", "tcq2")):
-        # very large rows, int8-activation path: chunk rows through the
-        # fused kernel (re-streams packed weights once per chunk — still
-        # far below the dequantized bf16 bytes) and ride the MXU's 2x
-        # int8 rate; per-chunk activation absmax is also tighter than one
-        # global scale
-        from qpalette_tpu.kernels import fused
-        N, n = z.shape
-        CH = fused_rows
-        pad = (-N) % CH
-        zp = jnp.pad(z, ((0, pad), (0, 0))) if pad else z
-        zc = zp.reshape(-1, CH, n)
-        y = jax.lax.map(lambda zz: fused.decode_matmul(spec, p, zz, luts),
-                        zc)
-        y = y.reshape(-1, spec.out_features)[:N]
-    elif spec.impl in ("pallas", "pallas_a8"):
-        # large-row exact path: kernel-order dequant once + bf16 MXU
-        # matmul; the activation/output sides absorb the layout
-        # permutations (the natural-order weight relayout was ~100x
-        # slower than the stream)
-        from qpalette_tpu.kernels import fused
-        y = fused.dequant_matmul(spec, p, z, luts)
+        if spec.kind == "dense_rot":  # rotated-dense baseline (QuaRot-style)
+            y = y * p["wscale"][None, :].astype(jnp.float32)
+        return y.astype(odt)
+    if spec.impl == "pallas":
+        if spec.kind not in KERNEL_KINDS:
+            raise ValueError(f"impl='pallas' has no kernel for {spec.kind!r}")
+    elif spec.impl != "xla":
+        raise ValueError(f"unknown impl {spec.impl!r}")
+    if spec.impl == "pallas" and z.shape[0] <= GEMV_MAX_ROWS:
+        from qpalette_tpu.kernels.trellis_gemv import decode_gemv
+        y = decode_gemv(z, p["trellis_kt"], spec.KV[0], spec.mode,
+                        spec.out_features, spec.in_features)
     else:
-        w = dequant_weight(spec, p, luts).astype(z.dtype)
-        y = jax.lax.dot_general(
-            z, w, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)
+        wt, s = _decode_t(spec, p, luts)
+        y = jax.lax.dot_general(z, wt.astype(z.dtype),
+                                (((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.float32) * s
     return (y * p["wscale"][None, :].astype(jnp.float32)).astype(odt)

@@ -1,20 +1,19 @@
 """K-means used for codebook construction (reference: lib/utils/kmeans.py).
 
 Pure-JAX Lloyd iterations with k-means++-style seeding via quantiles/random
-choice; runs on CPU or TPU.  Deterministic given the seed.
+choice; runs on any JAX backend.  Deterministic given the seed.
 
 1-D inputs use the EXACT DP solver (native/kmeans1d.cpp — the equivalent
 of the reference's flash1dkmeans exact scalar clustering,
 lib/quantizer/vq_quant.py:12-33): optimal 1-D clusters are contiguous in
 sorted order, so an O(k·n·log n) divide-and-conquer DP finds the global
 optimum.  Falls back to quantile-seeded Lloyd's when the native library
-isn't built.
+can't be built.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import jax
 import jax.numpy as jnp
@@ -29,11 +28,10 @@ def _kmeans1d_lib():
     if _K1D_TRIED:
         return _K1D
     _K1D_TRIED = True
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "native", "libqpt_pack.so")
-    if not os.path.exists(path):
+    from qpalette_tpu.ops.native_pack import native_library
+    lib = native_library()
+    if lib is None:
         return None
-    lib = ctypes.CDLL(path)
     dp = ctypes.POINTER(ctypes.c_double)
     lib.qpt_kmeans1d.argtypes = [dp, dp, ctypes.c_int64, ctypes.c_int, dp]
     lib.qpt_kmeans1d.restype = ctypes.c_double

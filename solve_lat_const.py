@@ -3,12 +3,12 @@
 CLI parity).
 
 Usage:
-  python fit_latency_coeffs.py --model meta-llama/Llama-3.1-8B   # once
+  python fit_latency_coeffs.py --model meta-llama/Llama-3.1-8B   # on the card
   python solve_lat_const.py --model meta-llama/Llama-3.1-8B \
-      --target_thp 200 --nodename v5e [--no_fuse] [--use_cc]
+      --target_thp 200 --nodename NVIDIA_H100_80GB_HBM3 [--no_fuse] [--use_cc]
 
 --use_cc enables the second kernel-impl variant per quantizer (the
-reference's SIMT flag; here the XLA dequant path vs the fused Pallas path).
+reference's SIMT flag; here the XLA dequant path vs the decode-GEMV kernel).
 """
 
 import argparse
@@ -22,7 +22,9 @@ def main():
     ap.add_argument("--quantizer_type", default="default",
                     choices=["default"])
     ap.add_argument("--imp_key", default="err", choices=["err"])
-    ap.add_argument("--nodename", default="v5e")
+    ap.add_argument("--nodename", required=True,
+                    help="latency table suffix written by "
+                    "fit_latency_coeffs.py (the device_kind)")
     ap.add_argument("--no_fuse", action="store_true")
     ap.add_argument("--target_thp", type=float, default=200)
     ap.add_argument("--use_cc", action="store_true")
@@ -42,8 +44,8 @@ def main():
     if not os.path.exists(lat_path):
         raise SystemExit(
             f"missing {lat_path}: run fit_latency_coeffs.py first "
-            f"(the reference ships this table precomputed for the 4090; "
-            f"we measure it natively on the TPU)")
+            f"on the card (the reference ships this table precomputed for "
+            f"the 4090)")
     lat_coeffs = json.load(open(lat_path))
 
     qlist = list(QDICT_LAT)

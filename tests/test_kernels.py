@@ -1,7 +1,9 @@
-"""Fused Pallas kernel correctness vs the executable-spec decoders.
+"""Decode-GEMV kernel and plain XLA path vs the executable-spec decoders.
 
-Runs in interpreter mode on CPU (conftest sets QPALETTE_INTERPRET=1); the
-same kernels compile for TPU.
+The kernel runs in the Pallas interpreter here (conftest requests it with
+QPALETTE_INTERPRET=1); on the card it compiles through Triton, which the
+`gpu`-marked test at the end checks.  References are the ops/packing spec
+decoders over the codebook tables of ops/codebooks, in float64.
 """
 
 import os
@@ -12,460 +14,258 @@ import jax.numpy as jnp
 import pytest
 
 from qpalette_tpu.kernels import formats as kf
-from qpalette_tpu.kernels import fused
+from qpalette_tpu.kernels import trellis_gemv as tg
 from qpalette_tpu.ops import packing
-from qpalette_tpu.ops.codebooks import trellis_lut, trellis_tlut, vq_lut
-from qpalette_tpu.quant import quantizers
+from qpalette_tpu.ops.codebooks import (tlut_bits_for_kv, trellis_lut,
+                                        trellis_lut_arith, vq_lut)
+from qpalette_tpu.runtime import qlinear
+from qpalette_tpu.runtime.qlinear import LinearSpec
+
+ARITH = [("1mad", 3), ("2mad", 4), ("dualmad", 5), ("sum2", 6), ("sum2", 7)]
 
 
-@pytest.mark.parametrize("bits,vec,m,k,N", [
-    (4, 1, 128, 512, 1),
-    (3, 1, 128, 1024, 2),
-    (8, 1, 128, 512, 1),
-    (6, 2, 128, 512, 4),
-    pytest.param(9, 2, 128, 1024, 1, marks=pytest.mark.skipif(
-        not os.environ.get("QPT_SLOW"), reason="slow interpret test")),
-])
-def test_vq_fused_matches_reference(bits, vec, m, k, N):
-    rng = np.random.default_rng(bits + vec)
-    P = k // vec
-    idx = rng.integers(0, 1 << bits, (m, P))
-    packed = packing.pack_rows(jnp.asarray(idx), bits)
-    lut = np.asarray(vq_lut(bits, vec, n_samples=1 << 14))
-
-    W = packing.dequant_lut(packed, jnp.asarray(lut), m, k, bits, vec)
-    x = jnp.asarray(rng.standard_normal((N, k)).astype(np.float32))
-    y_ref = np.asarray(x @ W.T)
-
-    qw_t = jnp.asarray(kf.vq_kernel_weights(np.asarray(packed), bits, vec,
-                                            m, k))
-    y = np.asarray(fused.vq_decode_matmul(x.astype(jnp.bfloat16), qw_t,
-                                          jnp.asarray(lut), bits, vec, m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel  # bf16 matmul tolerance
-
-
-@pytest.mark.parametrize("KV,m,k,N", [
-    (4, 128, 64, 1),
-    pytest.param(3, 128, 64, 2, marks=pytest.mark.slow),
-    pytest.param(7, 64, 128, 1, marks=pytest.mark.skipif(
-        not os.environ.get("QPT_SLOW"), reason="slow interpret test")),
-    pytest.param(10, 64, 128, 1, marks=pytest.mark.skipif(
-        not os.environ.get("QPT_SLOW"), reason="slow interpret test")),
-])
-def test_tcq_fused_matches_reference(KV, m, k, N):
-    from qpalette_tpu.ops.codebooks import tlut_bits_for_kv
-    S = tlut_bits_for_kv(KV)
-    rng = np.random.default_rng(KV)
-    # random but valid circular bitstreams
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    packed = jnp.asarray(words)
-    lut = trellis_lut(S)
-
-    W = packing.dequant_tcq(packed, jnp.asarray(lut), m, k, KV)
-    x = jnp.asarray(rng.standard_normal((N, k)).astype(np.float32))
-    y_ref = np.asarray(x @ W.T)
-
-    tr_kt = jnp.asarray(kf.tcq_kernel_weights(words, m, k))
-    y = np.asarray(fused.tcq_decode_matmul(
-        x.astype(jnp.bfloat16), tr_kt, jnp.asarray(trellis_tlut(S)),
-        KV, S, m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-@pytest.mark.slow  # 61 s
-def test_tcomb_fused_via_quantizer():
-    """End-to-end: quantize -> kernel-format -> fused matmul == hatW @ x."""
-    rng = np.random.default_rng(0)
-    m, k = 64, 128
-    Wr = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32))
-    linear, hatW = quantizers.quantize_mat_combt(Wr, None, KV1=4, KV2=5)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32))
-    y_ref = np.asarray(x @ hatW.T)
-
-    n1, n2 = linear["in_part"]
-    S = linear["tlut_bits"]
-    tl = jnp.asarray(trellis_tlut(S))
-    t1 = jnp.asarray(kf.tcq_kernel_weights(linear["trellis1"], m, n1))
-    t2 = jnp.asarray(kf.tcq_kernel_weights(linear["trellis2"], m, n2))
-    xb = x.astype(jnp.bfloat16)
-    y = np.asarray(
-        fused.tcq_decode_matmul(xb[:, :n1], t1, tl, 4, S, m, n1)
-        + fused.tcq_decode_matmul(xb[:, n1:], t2, tl, 5, S, m, n2))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-@pytest.mark.slow  # 34 s
-def test_tcomb_one_kernel_matches_two_call():
-    """Fused single-kernel tcomb == two-half reference decode."""
-    KV1, KV2, S = 4, 5, 9
-    m, n = 64, 128
-    n1 = n2 = n // 2
-    rng = np.random.default_rng(1)
-    t1 = rng.integers(0, 1 << 32, ((m // 16) * (n1 // 16), 4 * KV1),
-                      dtype=np.uint32)
-    t2 = rng.integers(0, 1 << 32, ((m // 16) * (n2 // 16), 4 * KV2),
-                      dtype=np.uint32)
-    lut = trellis_lut(S)
-    W1 = packing.dequant_tcq(jnp.asarray(t1), jnp.asarray(lut), m, n1, KV1)
-    W2 = packing.dequant_tcq(jnp.asarray(t2), jnp.asarray(lut), m, n2, KV2)
-    W = jnp.concatenate([W1, W2], axis=1)
-    x = jnp.asarray(rng.standard_normal((2, n)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    trc = jnp.asarray(kf.tcomb_kernel_weights(t1, t2, m, n1, n2, KV1, KV2))
-    y = np.asarray(fused.tcomb_decode_matmul(
-        x.astype(jnp.bfloat16), trc, jnp.asarray(trellis_tlut(S)),
-        KV1, KV2, S, m, n))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-def test_tcq1_kernel_matches_reference():
-    """Gather-free 1mad kernel == executable-spec decode."""
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 3, 64, 128
-    rng = np.random.default_rng(2)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 8 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("1mad")
-    W = packing.dequant_tcq(jnp.asarray(words), jnp.asarray(lut), m, k, KV,
-                            v=1)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-    y = np.asarray(fused.tcq1_decode_matmul(x.astype(jnp.bfloat16), tr_pl,
-                                            KV, "1mad", m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-@pytest.mark.parametrize("KV", [5, 6])
-def test_tcq2_kernel_matches_reference(KV):
-    """V=2 dual-mad planar kernel == executable-spec decode
-    (packing.dequant_tcq2)."""
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    m, k = 64, 128
-    rng = np.random.default_rng(30 + KV)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("dualmad")
-    W = packing.dequant_tcq2(jnp.asarray(words), jnp.asarray(lut), m, k, KV)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    y = np.asarray(fused.tcq2_decode_matmul(x.astype(jnp.bfloat16), tr_pl,
-                                            KV, m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-# ---------------------------------------------------------------------------
-# dequant-to-HBM kernels (the bs>8 / prefill path) vs the executable spec
-# ---------------------------------------------------------------------------
-
-def test_tcq1_dequant_matches_spec():
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 3, 64, 128
-    rng = np.random.default_rng(4)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 8 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("1mad")
-    W = np.asarray(packing.dequant_tcq(jnp.asarray(words), jnp.asarray(lut),
-                                       m, k, KV, v=1))
-    tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-    Wt = np.asarray(fused.tcq1_dequant(tr_pl, KV, m, k)).astype(np.float32)
-    assert np.allclose(Wt, W.T, atol=2e-2), np.abs(Wt - W.T).max()
-
-
-def test_tcq2_dequant_matches_spec():
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 6, 64, 128
-    rng = np.random.default_rng(44)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("dualmad")
-    W = np.asarray(packing.dequant_tcq2(jnp.asarray(words),
-                                        jnp.asarray(lut), m, k, KV))
-    tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    Wt = np.asarray(fused.tcq2_dequant(tr_pl, KV, m, k)).astype(np.float32)
-    assert np.allclose(Wt, W.T, atol=2e-2), np.abs(Wt - W.T).max()
-
-
-@pytest.mark.slow  # 86 s interpret-mode sweep
-def test_tcq_dequant_matches_spec():
-    KV, S, m, k = 4, 9, 64, 128
-    rng = np.random.default_rng(5)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    lut = trellis_lut(S)
-    W = np.asarray(packing.dequant_tcq(jnp.asarray(words), jnp.asarray(lut),
-                                       m, k, KV))
-    tr_kt = jnp.asarray(kf.tcq_kernel_weights(words, m, k))
-    Wt = np.asarray(fused.tcq_dequant(tr_kt, jnp.asarray(trellis_tlut(S)),
-                                      KV, S, m, k)).astype(np.float32)
-    assert np.allclose(Wt, W.T, atol=2e-2), np.abs(Wt - W.T).max()
-
-
-def test_vq_dequant_matches_spec():
-    bits, vec, m, k = 4, 2, 128, 512
-    rng = np.random.default_rng(6)
-    P = k // vec
-    idx = rng.integers(0, 1 << bits, (m, P))
-    packed = packing.pack_rows(jnp.asarray(idx), bits)
-    lut = np.asarray(vq_lut(bits, vec, n_samples=1 << 14))
-    W = np.asarray(packing.dequant_lut(packed, jnp.asarray(lut), m, k,
-                                       bits, vec))
-    qw_t = jnp.asarray(kf.vq_kernel_weights(np.asarray(packed), bits, vec,
-                                            m, k))
-    Wt = np.asarray(fused.vq_dequant(qw_t, jnp.asarray(lut), bits, vec,
-                                     m, k)).astype(np.float32)
-    assert np.allclose(Wt, W.T, atol=2e-2), np.abs(Wt - W.T).max()
-
-
-def test_large_batch_falls_back_to_dequant_matmul():
-    """qlinear_apply with >8 rows must produce the same result as the
-    fused path (the reference's bs<=8 / bs>8 split)."""
-    from qpalette_tpu.runtime.qlinear import LinearSpec, qlinear_apply
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 3, 64, 128
-    rng = np.random.default_rng(7)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 8 * KV), dtype=np.uint32)
-    tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-    spec = LinearSpec("tcq1", in_features=k, out_features=m, KV=(KV,),
-                      mode="1mad", impl="pallas")
-    p = {"trellis_pl": tr_pl, "wscale": jnp.ones((m,), jnp.float32)}
-    x_small = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32)
-                          ).astype(jnp.bfloat16)
-    x_big = jnp.concatenate([x_small] * 8, axis=0)  # 16 rows
-    y_small = np.asarray(qlinear_apply(spec, p, x_small).astype(jnp.float32))
-    y_big = np.asarray(qlinear_apply(spec, p, x_big).astype(jnp.float32))
-    assert np.allclose(y_big[:2], y_small, atol=3e-2, rtol=3e-2), \
-        np.abs(y_big[:2] - y_small).max()
-
-
-def test_tcq1_2mad_kernel_matches_reference():
-    """2mad decode (hi32 limb emulation) == executable spec."""
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 3, 64, 128
-    rng = np.random.default_rng(8)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 8 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("2mad")
-    W = packing.dequant_tcq(jnp.asarray(words), jnp.asarray(lut), m, k, KV,
-                            v=1)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-    y = np.asarray(fused.tcq1_decode_matmul(x.astype(jnp.bfloat16), tr_pl,
-                                            KV, "2mad", m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-    Wt = np.asarray(fused.tcq1_dequant(tr_pl, KV, m, k, mode="2mad")
-                    ).astype(np.float32)
-    assert np.allclose(Wt, np.asarray(W).T, atol=2e-2)
-
-
-@pytest.mark.parametrize("v2", [False, True])
-def test_a8_path_close_to_exact(v2):
-    """int8-activation MXU path: ~1% of exact (activation quantization
-    only; weights decode identically)."""
-    rng = np.random.default_rng(9)
-    m, k = 64, 128
-    if v2:
-        KV = 6
-        words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 4 * KV),
-                             dtype=np.uint32)
-        tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-        f = lambda x, a8: fused.tcq2_decode_matmul(x, tr_pl, KV, m, k,
-                                                   a8=a8)
-    else:
-        KV = 3
-        words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 8 * KV),
-                             dtype=np.uint32)
-        tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-        f = lambda x, a8: fused.tcq1_decode_matmul(x, tr_pl, KV, "1mad",
-                                                   m, k, a8=a8)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    y_exact = np.asarray(f(x, False))
-    y_a8 = np.asarray(f(x, True))
-    rel = np.abs(y_a8 - y_exact).max() / (np.abs(y_exact).max() + 1e-9)
-    assert rel < 0.05, rel
-
-
-@pytest.mark.parametrize("KV", [6, 7])
-def test_tcq2_sum2_kernel_matches_reference(KV):
-    """sum2 decode (one scramble per pair, 2 int8/weight MXU feed) ==
-    executable-spec decode; KV=6 exercises the DENSE planar layout
-    (true 3 bits/weight, sublane-roll carry), KV=7 the dense odd-KV
-    double-tile layout (true 3.5 bits/weight)."""
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    m, k = 64, 128
-    rng = np.random.default_rng(40 + KV)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("sum2")
-    W = packing.dequant_tcq2(jnp.asarray(words), jnp.asarray(lut), m, k, KV)
-    x = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    y = np.asarray(fused.tcq2_decode_matmul(x.astype(jnp.bfloat16), tr_pl,
-                                            KV, m, k, mode="sum2"))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-    # dequant-to-HBM kernel agrees too (bf16 output rounding only)
-    Wt = np.asarray(fused.tcq2_dequant(tr_pl, KV, m, k,
-                                       mode="sum2")).astype(np.float32)
-    assert np.abs(Wt.T - np.asarray(W)).max() < 0.02
-
-
-@pytest.mark.parametrize("kind,a8", [
-    ("sum2", False), ("sum2", True), ("tcq1", False),
-])
-def test_fused_rotation_prologue_matches_explicit(kind, a8):
-    """su= fused-rotation prologue (repeat folded into the Hadamard's
-    second factor, models/llama._rotate_in semantics) == explicit
-    rotate-then-decode.  a8 tolerance covers int8 round ties flipping
-    between the f32 (fused) and bf16-roundtrip (explicit) paths."""
-    from qpalette_tpu.ops.hadamard import hadamard_transform_t
-    m, k = 64, 256
-    rng = np.random.default_rng(17)
-    x = jnp.asarray(rng.standard_normal((1, k)), jnp.float32) \
-        .astype(jnp.bfloat16)
-    su = jnp.asarray((rng.standard_normal(k) > 0) * 2.0 - 1.0, jnp.float32)
-    z = hadamard_transform_t(x * su.astype(x.dtype)).astype(jnp.bfloat16)
-    if kind == "sum2":
-        KV = 6
-        words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 4 * KV),
-                             dtype=np.uint32)
-        trpl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-        ref = fused.tcq2_decode_matmul(z, trpl, KV, m, k, a8=a8,
-                                       mode="sum2")
-        got = fused.tcq2_decode_matmul(x, trpl, KV, m, k, a8=a8,
-                                       mode="sum2", su=su)
-    else:
-        KV = 3
-        words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 8 * KV),
-                             dtype=np.uint32)
-        trpl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-        ref = fused.tcq1_decode_matmul(z, trpl, KV, "1mad", m, k, a8=a8)
-        got = fused.tcq1_decode_matmul(x, trpl, KV, "1mad", m, k, a8=a8,
-                                       su=su)
-    rel = np.abs(np.asarray(got) - np.asarray(ref)).max() \
-        / (np.abs(np.asarray(ref)).max() + 1e-9)
-    assert rel < (0.02 if a8 else 1e-4), rel
-
-
-def test_tcq1_dense_layout_matches_reference():
-    """Even-KV tcq1 planar layout is DENSE (formats.planar_dense): KV=4
-    stores exactly 4 bits/weight and still decodes bit-exactly."""
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    KV, m, k = 4, 64, 128
-    assert kf.planar_dense(KV)
-    rng = np.random.default_rng(7)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 8 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith("1mad")
-    W = packing.dequant_tcq(jnp.asarray(words), jnp.asarray(lut), m, k, KV,
-                            v=1)
-    tr_pl = kf.tcq1_planar_weights(jnp.asarray(words), m, k, KV)
-    # dense layout really is KV/2 words per sublane (no inflation)
-    assert tr_pl.shape == (k // 16, (KV // 2) * 16, m // 16)
-    x = jnp.asarray(rng.standard_normal((1, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    y = np.asarray(fused.tcq1_decode_matmul(x.astype(jnp.bfloat16), tr_pl,
-                                            KV, "1mad", m, k))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-def test_dense_odd_layout_sizes():
-    """Odd KV with an even tile count uses the DOUBLE-TILE dense layout:
-    stored words = exactly KV/2 bits/weight (V=2) / KV (V=1) — the layout
-    the solver's nominal-bit memory model assumes (round-4 VERDICT #3)."""
-    m, k = 64, 128
-    for KV in (5, 7, 9):
-        assert kf.planar_dense_odd(KV, k)
-        words = np.zeros(((m // 16) * (k // 16), 4 * KV), np.uint32)
-        tr = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-        assert tr.shape == (k // 32, KV * 8, m // 16)
-        assert tr.size * 4 * 8 == m * k * KV / 2  # bits == nominal
-        words1 = np.zeros(((m // 16) * (k // 16), 8 * KV), np.uint32)
-        tr1 = kf.tcq1_planar_weights(jnp.asarray(words1), m, k, KV)
-        assert tr1.shape == (k // 32, KV * 16, m // 16)
-        assert tr1.size * 4 * 8 == m * k * KV
-    # odd tile count keeps the aligned fallback
-    assert not kf.planar_dense_odd(5, 16)
-
-
-@pytest.mark.parametrize("KV,mode", [
-    (5, "sum2"),
-    pytest.param(5, "dualmad", marks=pytest.mark.slow),
-])
-def test_dense_odd_dequant_matmul_large_rows(KV, mode):
-    """Large-row kernel-order dequant+matmul == executable spec for the
-    dense odd-KV layout (the ctx-8192 / serving-admission path)."""
-    from qpalette_tpu.kernels.fused import dequant_matmul
-    from qpalette_tpu.runtime.qlinear import LinearSpec
-    from qpalette_tpu.ops.codebooks import trellis_lut_arith
-    m, k = 64, 128
-    rng = np.random.default_rng(50 + KV)
-    ntiles = (m // 16) * (k // 16)
-    words = rng.integers(0, 1 << 32, (ntiles, 4 * KV), dtype=np.uint32)
-    lut = trellis_lut_arith(mode)
-    W = packing.dequant_tcq2(jnp.asarray(words), jnp.asarray(lut), m, k, KV)
-    x = jnp.asarray(rng.standard_normal((16, k)).astype(np.float32))
-    y_ref = np.asarray(x.astype(jnp.bfloat16).astype(jnp.float32) @ W.T)
-    tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    spec = LinearSpec("tcq2", in_features=k, out_features=m, KV=(KV,),
-                      mode=mode, impl="pallas")
-    y = np.asarray(dequant_matmul(spec, {"trellis_pl": tr_pl},
-                                  x.astype(jnp.bfloat16), {}))
-    rel = np.abs(y - y_ref).max() / (np.abs(y_ref).max() + 1e-9)
-    assert rel < 0.03, rel
-
-
-def test_dense_odd_fused_rotation_prologue():
-    """Fused-rotation prologue with the dense odd-KV byte-row permutation
-    folded into the Hadamard factor == explicit rotate-then-decode."""
-    from qpalette_tpu.ops.hadamard import hadamard_transform_t
-    KV, m, k = 5, 64, 256
-    rng = np.random.default_rng(23)
-    x = jnp.asarray(rng.standard_normal((1, k)), jnp.float32) \
-        .astype(jnp.bfloat16)
-    su = jnp.asarray((rng.standard_normal(k) > 0) * 2.0 - 1.0, jnp.float32)
-    z = hadamard_transform_t(x * su.astype(x.dtype)).astype(jnp.bfloat16)
-    words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 4 * KV),
+def _arith_case(mode, KV, m, k, seed):
+    """Random canonical trellis words + the spec's dense W (m, k)."""
+    V = tg.mode_v(mode)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 8 * KV // V),
                          dtype=np.uint32)
-    trpl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    ref = fused.tcq2_decode_matmul(z, trpl, KV, m, k, mode="sum2")
-    got = fused.tcq2_decode_matmul(x, trpl, KV, m, k, mode="sum2", su=su)
-    rel = np.abs(np.asarray(got) - np.asarray(ref)).max() \
-        / (np.abs(np.asarray(ref)).max() + 1e-9)
-    assert rel < 1e-4, rel
+    lut = jnp.asarray(trellis_lut_arith(mode))
+    if V == 1:
+        W = packing.dequant_tcq(jnp.asarray(words), lut, m, k, KV, v=1)
+    else:
+        W = packing.dequant_tcq2(jnp.asarray(words), lut, m, k, KV)
+    return words, np.asarray(W, np.float64)
 
 
-def test_chunked_fused_a8_large_rows_matches():
-    """rows > fused cutoff on the a8 path chunk through the fused kernel
-    (lax.map) — must match the small-row fused result."""
-    from qpalette_tpu.runtime.qlinear import LinearSpec, qlinear_apply
-    KV, m, k = 6, 64, 128
-    rng = np.random.default_rng(60)
-    words = rng.integers(0, 1 << 32, ((m // 16) * (k // 16), 4 * KV),
-                         dtype=np.uint32)
-    tr_pl = kf.tcq2_planar_weights(jnp.asarray(words), m, k, KV)
-    spec = LinearSpec("tcq2", in_features=k, out_features=m, KV=(KV,),
-                      mode="sum2", impl="pallas_a8")
-    p = {"trellis_pl": tr_pl, "wscale": jnp.ones((m,), jnp.float32)}
-    x2 = jnp.asarray(rng.standard_normal((2, k)).astype(np.float32)
-                     ).astype(jnp.bfloat16)
-    xbig = jnp.tile(x2, (150, 1))  # 300 rows > 256 cutoff
-    y2 = np.asarray(qlinear_apply(spec, p, x2).astype(jnp.float32))
-    ybig = np.asarray(qlinear_apply(spec, p, xbig).astype(jnp.float32))
-    assert ybig.shape == (300, m)
-    assert np.allclose(ybig[:2], y2, atol=3e-2, rtol=3e-2), \
-        np.abs(ybig[:2] - y2).max()
+# m/16 = 3 and k/16 = 5 (48 x 80) leave no power-of-two block above one
+# tile and an uneven k-split: the kernel's smallest-block fallback
+@pytest.mark.parametrize("m,k", [(64, 128), (48, 80)])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("mode,KV", ARITH)
+def test_gemv_kernel_matches_spec(mode, KV, rows, m, k):
+    words, W = _arith_case(mode, KV, m, k, seed=KV * 7 + rows)
+    rng = np.random.default_rng(rows)
+    x = jnp.asarray(rng.standard_normal((rows, k)), jnp.bfloat16)
+    ref = np.asarray(x, np.float64) @ W.T
+    y = np.asarray(tg.decode_gemv(x, kf.trellis_kt(words, m, k), KV, mode,
+                                  m, k))
+    assert y.shape == (rows, m)
+    # exact integer weights x bf16 inputs: only the f32 summation differs
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("bm,ks", [(1, 1), (2, 3), (4, 8)])
+def test_gemv_kernel_block_configs(bm, ks):
+    """Every m-block width and k-split gives the same product (k-split
+    partials are summed outside the kernel)."""
+    m, k, KV = 64, 128, 6
+    words, W = _arith_case("sum2", KV, m, k, seed=3)
+    x = jnp.asarray(np.random.default_rng(4).standard_normal((2, k)),
+                    jnp.bfloat16)
+    ref = np.asarray(x, np.float64) @ W.T
+    y = np.asarray(tg.decode_gemv(x, kf.trellis_kt(words, m, k), KV, "sum2",
+                                  m, k, bm=bm, ks=ks))
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_block_config_heuristic():
+    # 8B shapes: 32 m-tiles per program, k split to ~528 programs
+    assert tg.block_config(6144, 4096) == (32, 44)
+    assert tg.block_config(131072, 4096) == (32, 3)
+    assert tg.block_config(4096, 14336) == (32, 66)
+    # odd tile counts fall back to the largest power-of-two divisor
+    assert tg.block_config(48, 80) == (1, 5)
+    with pytest.raises(AssertionError):
+        tg.block_config(48, 80, bm=2)
+
+
+def _plain_case(kind, rng):
+    """(spec, params, luts, W_ref (m, k)) for one kind at a tiny shape."""
+    m, k = 64, 128
+    if kind in ("tcq1_1mad", "tcq1_2mad", "tcq2_dualmad", "tcq2_sum2"):
+        base, mode = kind.split("_")
+        KV = {"1mad": 3, "2mad": 4, "dualmad": 5, "sum2": 7}[mode]
+        words, W = _arith_case(mode, KV, m, k, seed=11)
+        spec = LinearSpec(base, k, m, KV=(KV,), mode=mode)
+        return spec, {"trellis_kt": kf.trellis_kt(words, m, k)}, {}, W
+    if kind == "vq":
+        bits, vec = 4, 2
+        idx = rng.integers(0, 1 << bits, (m, k // vec))
+        packed = packing.pack_rows(jnp.asarray(idx), bits)
+        lut = np.asarray(vq_lut(bits, vec, n_samples=1 << 14))
+        W = packing.dequant_lut(packed, jnp.asarray(lut), m, k, bits, vec)
+        spec = LinearSpec("vq", k, m, bits=bits, vec=vec)
+        p = {"qweight_t": kf.vq_words(packed, bits, vec, k),
+             "lut": jnp.asarray(lut)}
+        return spec, p, {}, np.asarray(W, np.float64)
+    KV1, KV2 = 4, 5
+    S = tlut_bits_for_kv(KV2)
+    lut = jnp.asarray(trellis_lut(S))
+    luts = {f"tcq{S}": lut}
+
+    def tiles(mm, kk, KV):
+        return rng.integers(0, 1 << 32, ((mm // 16) * (kk // 16), 4 * KV),
+                            dtype=np.uint32)
+    if kind == "tcq":
+        t = tiles(m, k, KV1)
+        W = packing.dequant_tcq(jnp.asarray(t), lut, m, k, KV1)
+        spec = LinearSpec("tcq", k, m, KV=(KV1,), tlut_bits=S)
+        return spec, {"trellis_kt": kf.trellis_kt(t, m, k)}, luts, \
+            np.asarray(W, np.float64)
+    if kind == "tcomb":  # input split
+        n1 = n2 = k // 2
+        t1, t2 = tiles(m, n1, KV1), tiles(m, n2, KV2)
+        W = jnp.concatenate([packing.dequant_tcq(jnp.asarray(t1), lut, m,
+                                                 n1, KV1),
+                             packing.dequant_tcq(jnp.asarray(t2), lut, m,
+                                                 n2, KV2)], axis=1)
+        spec = LinearSpec("tcomb", k, m, KV=(KV1, KV2), tlut_bits=S,
+                          split=(n1, n2))
+        p = {"trellis1_kt": kf.trellis_kt(t1, m, n1),
+             "trellis2_kt": kf.trellis_kt(t2, m, n2)}
+        return spec, p, luts, np.asarray(W, np.float64)
+    assert kind == "comb"  # output split
+    m1 = m2 = m // 2
+    t1, t2 = tiles(m1, k, KV1), tiles(m2, k, KV2)
+    W = jnp.concatenate([packing.dequant_tcq(jnp.asarray(t1), lut, m1, k,
+                                             KV1),
+                         packing.dequant_tcq(jnp.asarray(t2), lut, m2, k,
+                                             KV2)], axis=0)
+    spec = LinearSpec("comb", k, m, KV=(KV1, KV2), tlut_bits=S,
+                      split=(m1, m2))
+    p = {"trellis1_kt": kf.trellis_kt(t1, m1, k),
+         "trellis2_kt": kf.trellis_kt(t2, m2, k)}
+    return spec, p, luts, np.asarray(W, np.float64)
+
+
+PLAIN_KINDS = ["tcq1_1mad", "tcq1_2mad", "tcq2_dualmad", "tcq2_sum2", "vq",
+               "tcq", "tcomb", "comb"]
+
+
+@pytest.mark.parametrize("kind", PLAIN_KINDS)
+def test_plain_dequant_matches_spec(kind):
+    """The XLA path's decode from the device layout == the spec decoders
+    (exactly: both produce the same f32 codebook values)."""
+    spec, p, luts, W = _plain_case(kind, np.random.default_rng(5))
+    Wt = np.asarray(qlinear.dequant_weight_t(spec, p, luts))
+    assert Wt.shape == (spec.in_features, spec.out_features)
+    np.testing.assert_allclose(Wt.T, W, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["tcq2_sum2", "vq"])
+def test_plain_apply_f32_is_exact_reference(kind):
+    """impl='xla' on f32 activations decodes in f32: the product equals
+    the spec weight's product to f32 rounding (the f32 model reference)."""
+    spec, p, luts, W = _plain_case(kind, np.random.default_rng(6))
+    p = dict(p, wscale=jnp.full((spec.out_features,), 0.5, jnp.float32))
+    x = np.random.default_rng(7).standard_normal((5, spec.in_features))
+    with jax.default_matmul_precision("highest"):
+        y = np.asarray(qlinear.qlinear_apply(spec, p,
+                                             jnp.asarray(x, jnp.float32)))
+    ref = 0.5 * (x @ W.T)
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_dispatch_at_row_cutoff(monkeypatch, extra):
+    """impl='pallas' runs the kernel up to GEMV_MAX_ROWS rows and the
+    decode-then-matmul path above; both give the same rows."""
+    spec, p, _, W = _plain_case("tcq2_sum2", np.random.default_rng(8))
+    spec = LinearSpec(spec.kind, spec.in_features, spec.out_features,
+                      KV=spec.KV, mode=spec.mode, impl="pallas")
+    p = dict(p, wscale=jnp.ones((spec.out_features,), jnp.float32))
+    calls = []
+    real = tg.decode_gemv
+    monkeypatch.setattr(tg, "decode_gemv",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    rows = qlinear.GEMV_MAX_ROWS + extra
+    x = jnp.asarray(np.random.default_rng(9).standard_normal(
+        (rows, spec.in_features)), jnp.bfloat16)
+    y = np.asarray(qlinear.qlinear_apply(spec, p, x, out_dtype=jnp.float32))
+    assert len(calls) == (0 if extra else 1)
+    ref = np.asarray(x, np.float64) @ W.T
+    # both paths multiply exact integer byte sums by the bf16 inputs
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_impl_resolution():
+    """The loader records the path each kind takes: the kernel only for
+    the arithmetic trellis kinds; asking it of another kind is an error."""
+    assert qlinear.resolve_impl("tcq2", "pallas") == "pallas"
+    assert qlinear.resolve_impl("tcq1", "pallas") == "pallas"
+    for kind in ("tcq", "tcomb", "comb", "vq"):
+        assert qlinear.resolve_impl(kind, "pallas") == "xla"
+    with pytest.raises(ValueError):
+        qlinear.resolve_impl("tcq2", "pallas_a8")
+    spec, p, luts, _ = _plain_case("vq", np.random.default_rng(1))
+    bad = LinearSpec("vq", spec.in_features, spec.out_features,
+                     bits=spec.bits, vec=spec.vec, impl="pallas")
+    p = dict(p, wscale=jnp.ones((spec.out_features,), jnp.float32))
+    with pytest.raises(ValueError):
+        qlinear.qlinear_apply(bad, p, jnp.ones((1, spec.in_features)))
+
+
+def test_kernel_without_interpret_request_raises(monkeypatch):
+    """Off the GPU the kernel runs only when the interpreter is asked for;
+    it never falls back to it silently."""
+    monkeypatch.delenv("QPALETTE_INTERPRET", raising=False)
+    words, _ = _arith_case("sum2", 6, 64, 128, seed=0)
+    x = jnp.ones((1, 128), jnp.bfloat16)
+    with pytest.raises(RuntimeError, match="QPALETTE_INTERPRET"):
+        tg.decode_gemv(x, kf.trellis_kt(words, 64, 128), 6, "sum2", 64, 128)
+
+
+@pytest.mark.parametrize("KV,V", [(5, 2), (6, 2), (7, 2), (9, 2), (3, 1),
+                                  (4, 1)])
+def test_trellis_layout_is_nominal_and_invertible(KV, V):
+    """(k/16, words, m/16) holds exactly KV/V bits per weight for every KV
+    and is a pure relayout of the canonical tile stream."""
+    m, k = 64, 96
+    words = np.random.default_rng(KV).integers(
+        0, 1 << 32, ((m // 16) * (k // 16), kf.trellis_words_per_tile(KV, V)),
+        dtype=np.uint32)
+    tr = kf.trellis_kt(words, m, k)
+    assert tr.shape == (k // 16, 8 * KV // V, m // 16)
+    assert tr.size * 32 == m * k * KV // V
+    back = np.asarray(tr).transpose(2, 0, 1).reshape(words.shape)
+    np.testing.assert_array_equal(back, words)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_path_rule(monkeypatch, tmp_path, env_set):
+    from qpalette_tpu.utils import compile_cache as cc
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cc.cache_dir() == str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert cc.cache_dir() == os.path.join(cc.REPO_ROOT, ".jax_cache")
+        assert os.path.isfile(os.path.join(cc.REPO_ROOT, "chip_smoke.py"))
+
+
+def test_unknown_device_kind_is_an_error():
+    from qpalette_tpu.utils.device import PEAKS, peaks
+    assert peaks("NVIDIA H100 80GB HBM3") is PEAKS["NVIDIA H100 80GB HBM3"]
+    with pytest.raises(ValueError, match="device_kind"):
+        peaks("NVIDIA A100-SXM4-80GB")
+
+
+def test_require_gpu_refuses_cpu():
+    from qpalette_tpu.utils.device import require_gpu
+    with pytest.raises(RuntimeError, match="no GPU"):
+        require_gpu()
+
+
+@pytest.mark.gpu
+def test_gemv_kernel_compiled_on_card(gpu):
+    """The compiled kernel (no interpreter) agrees with the f32 reference
+    at an 8B projection width."""
+    m, k, KV = 4096, 4096, 6
+    words, W = _arith_case("sum2", KV, m, k, seed=0)
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((8, k)),
+                    jnp.bfloat16)
+    ref = np.asarray(x, np.float64) @ W.T
+    y = np.asarray(tg.decode_gemv(x, kf.trellis_kt(words, m, k), KV, "sum2",
+                                  m, k))
+    assert np.abs(y - ref).max() <= 1e-3 * np.abs(ref).max()

@@ -25,7 +25,7 @@ def test_solver_bytes_match_streamed_bytes(qstr, key):
     cfg = LlamaConfig.llama32_1b()
     shape = layer_shape(cfg, key)
     art = dummy_artifact(qstr, shape, seed=0)
-    p = _params_from_artifact(art, jnp.bfloat16, "pallas")
+    p = _params_from_artifact(art, jnp.bfloat16)
     # packed stream = everything except the per-row scale epilogue and
     # (for LUT kinds) the shared codebook, which layer_mem_bytes bills
     # separately as the LUT term

@@ -229,7 +229,7 @@ def test_int8_lm_head_close_to_bf16(dense_setup, tmp_path):
     assert "lm_head_q" in p8 and "lm_head" not in p8
     toks = jnp.asarray(np.arange(4)[None, :] % CFG.vocab_size, jnp.int32)
     l16 = np.asarray(forward(q16, p16, toks))
-    l8 = np.asarray(forward(q8, p8, toks))  # rows<=8: int8_gemv path
+    l8 = np.asarray(forward(q8, p8, toks))  # decode-sized rows
     rel = np.abs(l8 - l16).max() / (np.abs(l16).max() + 1e-9)
     assert rel < 0.02, rel
     # prefill/eval branch (rows > 8)
@@ -240,31 +240,23 @@ def test_int8_lm_head_close_to_bf16(dense_setup, tmp_path):
     assert rel2 < 0.02, rel2
 
 
-@pytest.mark.slow  # >35 s interpret-mode
-def test_a8_impl_logits_close_to_exact_bench_mix(tmp_path):
-    """End-to-end logits delta of impl=pallas_a8 (int8-activation MXU
-    path) vs impl=pallas (exact bf16 byte-sum) on the BENCH-mix scheme
-    family (merged tcq2s_6/tcq2s_8): the int8 activation quantization
-    must stay a small perturbation at the model level (VERDICT r3 #6)."""
-    from qpalette_tpu.runtime.loader import LAYER_KEYS
-    qd = {}
-    for i in range(CFG.num_layers):
-        for key in LAYER_KEYS:
-            qd[f"{i}_{key}"] = ("tcq2s_8_none_0.9"
-                                if key == "mlp.down_proj"
-                                else "tcq2s_6_none_0.9")
-    mi = [["merge_qkv", "merge_ug"]] * CFG.num_layers
-    outs = {}
-    for impl in ("pallas", "pallas_a8"):
-        spec, params = build_quantized_model(
-            CFG, qd, merge_info=mi, model_key="tiny_a8mix",
-            save_dir=str(tmp_path), dummy=True, impl=impl)
-        toks = jnp.asarray(np.arange(4)[None, :] % CFG.vocab_size,
-                           jnp.int32)
-        outs[impl] = np.asarray(forward(spec, params, toks), np.float32)
-    d = np.abs(outs["pallas_a8"] - outs["pallas"]).max()
-    scale = np.abs(outs["pallas"]).max() + 1e-9
-    assert d / scale < 0.05, d / scale
+@pytest.mark.parametrize("lm_head_bits", [4, 8])
+def test_kernel_impl_matches_plain_bench_mix(lm_head_bits):
+    """impl=pallas (decode-GEMV kernel at decode rows) and impl=xla
+    (decode + matmul) on the same params of the bench mix (merged
+    tcq2s_6/tcq2s_8, quantized lm_head) give the same logits up to bf16
+    activation rounding."""
+    from qpalette_tpu.runtime.loader import sum2mix_qdict, with_impl
+    spec, params = build_quantized_model(
+        CFG, sum2mix_qdict(CFG.num_layers),
+        merge_info=[["merge_qkv", "merge_ug"]] * CFG.num_layers,
+        dummy=True, impl="pallas", lm_head_bits=lm_head_bits)
+    assert {ls.impl for _, ls in spec.layers[0][0].projs} == {"pallas"}
+    toks = jnp.asarray(np.arange(4)[None, :] % CFG.vocab_size, jnp.int32)
+    got = np.asarray(forward(spec, params, toks), np.float32)
+    ref = np.asarray(forward(with_impl(spec, "xla"), params, toks),
+                     np.float32)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 2e-2
 
 
 @pytest.mark.slow  # >35 s interpret-mode

@@ -140,8 +140,7 @@ def test_solver_output_loadable_by_loader():
     sol = solve_lat_constrained(cfg, qlist, errs, lat, target_thp=100.0,
                                 num_layers=cfg.num_layers)
     spec, params = build_quantized_model(
-        cfg, sol.qdict, merge_info=sol.merge_info, model_key="tiny_sol",
-        save_dir="/tmp/qpt_test_sol", dummy=True)
+        cfg, sol.qdict, merge_info=sol.merge_info, dummy=True)
     assert spec is not None
 
 

@@ -1,7 +1,7 @@
 """Multi-host distribution test: 2 real processes x 4 virtual CPU devices
 joined via jax.distributed (GRPC coordinator), running one decode forward
 over a (dp=2, tp=4) DCN-aware mesh — the SURVEY §2.12 / BASELINE 2-host
-scaling surface, simulated without a TPU pod.
+scaling surface, simulated on one host.
 
 Each subprocess shards params over its mesh (weights replicated across
 the DCN 'dp' axis, tensor-parallel over 'tp'), runs a forward on its
@@ -47,7 +47,7 @@ cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                   rope_theta=10000.0)
 spec, params = build_quantized_model(
     cfg, "tcq2s_6_none_0.9", model_key="mh_test", dummy=True,
-    impl="pallas", save_dir="/tmp/qpt_mh", row_parallel_tp=4)
+    impl="pallas", row_parallel_tp=4)
 mesh = dcn_mesh(tp=4)
 assert dict(mesh.shape) == {"dp": nproc, "tp": 4}
 params_s, _ = shard_model_dcn(params, spec, mesh)
@@ -119,7 +119,7 @@ def test_two_process_dcn_mesh_matches_single(tmp_path):
                       num_kv_heads=4, head_dim=32, rope_theta=10000.0)
     spec, params = build_quantized_model(
         cfg, "tcq2s_6_none_0.9", model_key="mh_test", dummy=True,
-        impl="pallas", save_dir="/tmp/qpt_mh", row_parallel_tp=4)
+        impl="pallas", row_parallel_tp=4)
     ref = np.asarray(forward(spec, params, res["tokens"]))
     got = res["logits"]
     assert got.shape == ref.shape

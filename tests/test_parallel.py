@@ -42,11 +42,11 @@ def test_param_shardings_cover_all_leaves(tmp_path):
     jax.tree.map(lambda x, s: None, params, sh)  # same structure
 
     sparams = shard_params(params, mesh)
-    # trellis/qweight rows must actually be split over tp
+    # packed words must actually be split over tp along output rows
     lp = sparams["layers"][0]
-    q = lp["q"]["qweight"]
+    q = lp["q"]["qweight_t"]  # (words, m)
     shard_shapes = {tuple(s.data.shape) for s in q.addressable_shards}
-    assert all(ss[0] == q.shape[0] // 2 for ss in shard_shapes)
+    assert all(ss[1] == q.shape[1] // 2 for ss in shard_shapes)
 
 
 @pytest.mark.slow  # 175 s; duplicates the driver's own dryrun gate
@@ -112,7 +112,7 @@ def test_tp_shardmap_matches_single_device(tmp_path, qstr, impl):
 def test_tp_shardmap_merged_tcq2s_bench_mix(tmp_path):
     """The FLAGSHIP bench config under tensor parallelism: merged qkv/ug
     (column-parallel via shard-interleaved m-tiles) + tcq2s everywhere
-    with row-parallel o/down (k-tile split of the dense planar layout)."""
+    with row-parallel o/down (k-tile split of the trellis layout)."""
     from qpalette_tpu.parallel import tp as tpmod
     from qpalette_tpu.runtime.loader import LAYER_KEYS
 
